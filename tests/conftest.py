@@ -53,6 +53,8 @@ _graftsan_enabled = _sanitizers.parse_graftsan(os.environ.get("GRAFTSAN"))
 
 
 def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (and nvcc); skips elsewhere")
     if _graftsan_enabled:
         _sanitizers.configure(_sanitizers.GraftSan(_graftsan_enabled))
 
