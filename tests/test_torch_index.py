@@ -235,9 +235,6 @@ def test_unported_types_and_tiers_raise(tmp_path, monkeypatch):
     noop = torch_new_index(tvi.parse_and_validate_config("noop", {}), str(tmp_path), device="cpu")
     with pytest.raises(ValueError):
         noop.search_by_vector(np.zeros(D, np.float32), 1)
-    with pytest.raises(NotImplementedError):
-        torch_new_index(tvi.parse_and_validate_config(
-            "hnsw_tpu", {"pq": {"enabled": True}}), str(tmp_path / "pq"), device="cpu")
     mesh = tvi.HnswUserConfig(index_type="hnsw_tpu_mesh")
     with pytest.raises(ValueError, match="item 10"):
         torch_new_index(mesh, str(tmp_path / "mesh"), device="cpu")

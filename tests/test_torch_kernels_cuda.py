@@ -14,7 +14,7 @@ import torch
 
 from weaviate_tpu_torch.entities import vectorindex as vi
 from weaviate_tpu_torch.index import new_vector_index
-from weaviate_tpu_torch.ops import gmin_scan
+from weaviate_tpu_torch.ops import gmin_scan, pq4, pq_gmin
 from weaviate_tpu_torch.storage.bitmap import Bitmap
 
 
@@ -46,6 +46,110 @@ def test_gmin_kernel_matches_plain_version(card, b, ncols, d, ag):
     want = gmin_scan.group_min_scores_reference(q, x, bias, -2.0, active_g=ag)
     assert torch.equal(torch.isinf(got), torch.isinf(want))
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+def _dead_bias(rng, ncols, card):
+    bias = torch.from_numpy(rng.standard_normal((16, ncols)).astype(np.float32)).to(card)
+    bias[:, ::7] = float("inf")
+    bias[:, ::5] = float("inf")  # every 35th group is dead in all slices
+    return bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ncols,d,ag", [(16, 1024, 32, 3), (77, 1000, 136, 16),
+                                          (5, 130, 30, 1), (300, 4096, 768, 16)])
+def test_gmin_kernel_bf16_store_matches_plain_version(card, b, ncols, d, ag):
+    """K1's bf16-store instantiation: the 16-byte copy (D % 8 == 0) and the
+    element copy (D = 30), ragged B and ncols, D over one staged depth.
+    Same tolerance as the f32 store."""
+    rng = np.random.default_rng(b + 1)
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(card)
+    x = torch.from_numpy(rng.standard_normal((16, ncols, d)).astype(np.float32)).to(card)
+    x = x.to(torch.bfloat16)
+    bias = _dead_bias(rng, ncols, card)
+    before = gmin_scan.launches
+    got = gmin_scan.group_min_scores(q, x, bias, -1.0, active_g=ag)
+    torch.cuda.synchronize()
+    assert gmin_scan.launches == before + 1
+    want = gmin_scan.group_min_scores_reference(q, x, bias, -1.0, active_g=ag)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+# (B, ncols, D, M, C, ag): ds = 4 (element path), 8 and 16 (16-byte path),
+# 25 (segments straddle the 128-wide stages), 1 (the tile encoder's M = D)
+_CODES_SHAPES = [(16, 1024, 32, 8, 32, 3), (77, 1000, 768, 96, 256, 16),
+                 (9, 130, 200, 8, 200, 2), (40, 700, 64, 64, 16, 5),
+                 (300, 4096, 128, 8, 256, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ncols,d,m,c,ag", _CODES_SHAPES)
+@pytest.mark.parametrize("alpha", [-2.0, -1.0])
+def test_pq8_kernel_matches_plain_version(card, b, ncols, d, m, c, ag, alpha):
+    """K2 against its plain version; tolerance as K1's (the same bf16
+    operands summed in another order)."""
+    rng = np.random.default_rng(b * m)
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(card)
+    codes = torch.from_numpy(rng.integers(0, c, (16, ncols, m)).astype(np.uint8)).to(card)
+    cb = torch.from_numpy(rng.standard_normal((m, c, d // m)).astype(np.float32)).to(card)
+    cb = cb.to(torch.bfloat16)
+    bias = _dead_bias(rng, ncols, card)
+    before = pq_gmin.launches
+    got = pq_gmin.pq_group_min_scores(q, codes, bias, cb, alpha, active_g=ag)
+    torch.cuda.synchronize()
+    assert pq_gmin.launches == before + 1
+    want = pq_gmin.pq_group_min_scores_reference(q, codes, bias, cb, alpha, active_g=ag)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ncols,d,m,c,ag", [s for s in _CODES_SHAPES if s[3] % 2 == 0])
+def test_pq4_kernel_matches_plain_version(card, b, ncols, d, m, c, ag):
+    """K3 against its plain version over nibble-packed codes."""
+    rng = np.random.default_rng(b * m + 1)
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(card)
+    packed = torch.from_numpy(rng.integers(0, 256, (16, ncols, m // 2)).astype(np.uint8)).to(card)
+    cb = torch.from_numpy(rng.standard_normal((m, 16, d // m)).astype(np.float32)).to(card)
+    cb = cb.to(torch.bfloat16)
+    bias = _dead_bias(rng, ncols, card)
+    before = pq4.launches
+    got = pq4.pq4_group_min_scores(q, packed, bias, cb, -2.0, active_g=ag)
+    torch.cuda.synchronize()
+    assert pq4.launches == before + 1
+    want = pq4.pq4_group_min_scores_reference(q, packed, bias, cb, -2.0, active_g=ag)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pq,counter", [({"rescore": True}, gmin_scan),
+                                        ({"rescore": False}, pq_gmin),
+                                        ({"bits": 4}, pq4)])
+def test_compressed_index_on_card_matches_cpu(card, tmp_path, pq, counter):
+    """A compressed index on the card and the same on the CPU, from the
+    same codebook (the card restarts from the CPU index's pq.npz): equal
+    ids for the kernel tier (B=16), the B=1 tier and a masked allowList;
+    distances rtol 1e-5."""
+    rng = np.random.default_rng(1)
+    vecs = rng.standard_normal((3000, 32)).astype(np.float32)
+    q = rng.standard_normal((16, 32)).astype(np.float32)
+    cfg = {"distance": "l2-squared", "flatSearchCutoff": 500,
+           "pq": {"enabled": True, "segments": 8, "centroids": 32, **pq}}
+    cpu = new_vector_index(vi.parse_and_validate_config("hnsw_tpu", cfg), str(tmp_path), device="cpu")
+    cpu.add_batch(np.arange(3000), vecs)
+    cpu.delete(*range(0, 60, 3))
+    cpu.shutdown()
+    idx = {dev: new_vector_index(vi.parse_and_validate_config("hnsw_tpu", cfg), str(tmp_path),
+                                 device=dev) for dev in ("cpu", "cuda")}
+    before = counter.launches
+    for b, allow in ((16, None), (1, None), (16, Bitmap(np.arange(0, 3000, 2)))):
+        got = idx["cuda"].search_by_vectors(q[:b], 10, allow_list=allow)
+        want = idx["cpu"].search_by_vectors(q[:b], 10, allow_list=allow)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
+    assert counter.launches == before + 2  # B=16 unfiltered and masked
 
 
 @pytest.mark.cuda

@@ -54,8 +54,19 @@ def test_pairwise_distances(metric):
 
 def test_normalize_rows_and_single_distance():
     x, q, _ = _data()
-    want = np.asarray(jdist.normalize_rows(jnp.asarray(x)))
-    np.testing.assert_allclose(tdist.normalize_rows(_t(x)).numpy(), want, rtol=1e-6)
+    # The JAX side gets a private copy, and its result is copied out once
+    # complete: on the CPU, jnp.asarray aliases a 64-byte aligned numpy
+    # buffer and np.asarray returns a view of the device buffer, so without
+    # the copies the compared arrays share memory with JAX's buffers. Both
+    # functions land within 2.5e-7 of float64 here, so each side is also
+    # held against a float64 reference: a deviation then names its side.
+    want = np.array(jdist.normalize_rows(jnp.array(x, copy=True)).block_until_ready())
+    x64 = x.astype(np.float64)
+    ref = x64 / np.linalg.norm(x64, axis=1, keepdims=True)
+    np.testing.assert_allclose(want, ref, rtol=1e-6, err_msg="the JAX package's normalize_rows")
+    got = tdist.normalize_rows(_t(x)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-6, err_msg="the port's normalize_rows")
+    np.testing.assert_allclose(got, want, rtol=1e-6)
     for metric in METRICS:
         assert tdist.single_distance(x[0], q[0], metric) == pytest.approx(
             jdist.single_distance(x[0], q[0], metric), rel=1e-6)

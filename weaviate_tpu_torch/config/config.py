@@ -1,0 +1,17 @@
+"""The port's copy of the serving knobs the compressed tiers read (twin of
+`weaviate_tpu/config/config.py:29,57,63`).
+
+In the JAX package a recall-guarded controller may step each budget down
+its ladder; without one installed, the index reads the top bucket. The
+port has no control plane, so each cap is its ladder's top bucket.
+"""
+
+# fast-scan candidate depth of the chunked scan: max(4k, 32) capped at the
+# top bucket
+RESCORE_R_BUCKETS = (32, 48, 64, 96, 128)
+
+# 4-bit funnel stage-1 survivors C (multiples of the group width 16)
+PQ4_FUNNEL_C_BUCKETS = (256, 384, 512, 768, 1024, 1536, 2048, 3072, 4096)
+
+# 4-bit funnel stage-2 survivors c
+PQ4_FUNNEL_RESCORE_BUCKETS = (32, 48, 64, 96, 128, 192, 256)

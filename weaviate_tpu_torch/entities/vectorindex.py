@@ -1,7 +1,8 @@
 """Vector-index user configs and the index-type registry (the port's own
 copy of `weaviate_tpu/entities/vectorindex.py`, cut to what the
-`hnsw_tpu`, `flat` and `noop` index types read; other schema keys are
-ignored, as the JAX package ignores keys it does not know).
+`hnsw_tpu`, `flat` and `noop` index types read, the whole `pq` block
+included; other schema keys are ignored, as the JAX package ignores keys
+it does not know).
 
 Reference: entities/vectorindex/hnsw/config.go:33-66 (UserConfig +
 defaults), config.go:69-71 (IndexType discriminator), config.go:101
@@ -11,6 +12,9 @@ same as the JAX package's, so one schema parses the same in both.
 
 from __future__ import annotations
 
+import logging
+import threading
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -45,17 +49,57 @@ DEFAULT_CLEANUP_INTERVAL_SECONDS = 300
 DEFAULT_FLAT_SEARCH_CUTOFF = 40_000
 
 
+# PQ defaults (pq_config.go:21-26)
+DEFAULT_PQ_CENTROIDS = 256
+PQ_ENCODER_KMEANS = "kmeans"
+PQ_ENCODER_TILE = "tile"
+PQ_DISTRIBUTION_LOG_NORMAL = "log-normal"
+PQ_DISTRIBUTION_NORMAL = "normal"
+# learned orthogonal rotation before quantization (OPQ)
+PQ_ROTATION_NONE = "none"
+PQ_ROTATION_OPQ = "opq"
+
+
+@dataclass
+class PQEncoderConfig:
+    type: str = PQ_ENCODER_KMEANS
+    distribution: str = PQ_DISTRIBUTION_LOG_NORMAL
+
+
 @dataclass
 class PQConfig:
-    """The `pq` block of the schema, as far as the port reads it: it
-    serves no compressed tier yet, so an index with `enabled` set refuses
-    to start (the other pq settings wait for ROADMAP queue 1 item 7)."""
+    """The schema's `pq` block (pq_config.go plus the JAX package's
+    extensions): `rescore` keeps a bf16 copy of the rows on the device for
+    the fast scan and the exact rescore (0 = auto `rescoreLimit`),
+    `rotation` 'opq' fits an orthogonal rotation before quantizing, and
+    `bits` 4 adds the nibble-packed 16-centroid quantizer that serves
+    through the three-stage funnel (ops/pq4.py)."""
 
     enabled: bool = False
+    segments: int = 0  # 0 = auto (= dims)
+    centroids: int = DEFAULT_PQ_CENTROIDS
+    encoder: PQEncoderConfig = field(default_factory=PQEncoderConfig)
+    rescore: bool = True
+    rescore_limit: int = 0
+    rotation: str = PQ_ROTATION_NONE
+    bits: int = 8
 
     @classmethod
     def from_dict(cls, d: dict) -> "PQConfig":
-        return cls(enabled=bool(d.get("enabled", False)))
+        enc = d.get("encoder") or {}
+        return cls(
+            enabled=bool(d.get("enabled", False)),
+            segments=int(d.get("segments", 0)),
+            centroids=int(d.get("centroids", DEFAULT_PQ_CENTROIDS)),
+            encoder=PQEncoderConfig(
+                type=enc.get("type", PQ_ENCODER_KMEANS),
+                distribution=enc.get("distribution", PQ_DISTRIBUTION_LOG_NORMAL),
+            ),
+            rescore=bool(d.get("rescore", True)),
+            rescore_limit=int(d.get("rescoreLimit", 0)),
+            rotation=str(d.get("rotation", PQ_ROTATION_NONE)),
+            bits=int(d.get("bits", 8)),
+        )
 
 
 @dataclass
@@ -116,6 +160,52 @@ class HnswUserConfig:
             raise ConfigValidationError(
                 f"storeDtype must be 'float32' in this port, got {self.store_dtype!r}"
             )
+        if self.pq.enabled:
+            validate_pq(self.pq, self.distance)
+
+
+def validate_pq(pq: PQConfig, distance: str) -> None:
+    """The pq checks of the JAX package's `HnswUserConfig.validate`."""
+    if pq.centroids < 1 or pq.centroids > 65536:
+        raise ConfigValidationError("pq.centroids must be in [1, 65536]")
+    if pq.encoder.type not in (PQ_ENCODER_KMEANS, PQ_ENCODER_TILE):
+        raise ConfigValidationError(f"invalid pq encoder {pq.encoder.type!r}")
+    if pq.rotation not in (PQ_ROTATION_NONE, PQ_ROTATION_OPQ):
+        raise ConfigValidationError(f"invalid pq rotation {pq.rotation!r} (none|opq)")
+    if pq.bits not in (4, 8):
+        raise ConfigValidationError("pq.bits must be 4 or 8")
+    if pq.bits == 4:
+        if distance not in MATMUL_DISTANCES:
+            # the funnel's 4-bit scan and 8-bit rescore are matmul-ADC
+            # formulations; manhattan's LUT tier has no 4-bit twin
+            raise ConfigValidationError(
+                "pq.bits=4 requires an l2-squared/dot/cosine distance")
+        if pq.encoder.type != PQ_ENCODER_KMEANS:
+            raise ConfigValidationError("pq.bits=4 requires the kmeans encoder")
+    if not pq.rescore:
+        # codes-only ADC over a flat scan lands the quantizer's whole error
+        # on the result set: loud at config time, rate-limited because
+        # validate() runs on every config load and update
+        _warn_rescore_off()
+
+
+_RESCORE_WARN_INTERVAL_S = 60.0
+_rescore_warn_last = [0.0]  # one rate limit per process
+_rescore_warn_lock = threading.Lock()
+
+
+def _warn_rescore_off() -> None:
+    with _rescore_warn_lock:
+        now = time.monotonic()
+        if now - _rescore_warn_last[0] < _RESCORE_WARN_INTERVAL_S:
+            return
+        _rescore_warn_last[0] = now
+    logging.getLogger(__name__).warning(
+        "pq.rescore=false serves raw ADC distances with NO exact "
+        "rescoring pass: expect a severe recall drop on flat scans. Set "
+        "pq.rescore=true (default) unless you need the absolute memory "
+        "floor; pq.rotation='opq' recovers part of the loss for "
+        "codes-only serving.")
 
 
 IMMUTABLE_FIELDS = (

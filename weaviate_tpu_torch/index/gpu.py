@@ -1,15 +1,17 @@
 """The GPU vector index ("hnsw_tpu" / "flat"): the port of
-`weaviate_tpu/index/tpu.py`, single device, uncompressed.
+`weaviate_tpu/index/tpu.py`, single device, uncompressed and
+PQ-compressed.
 
 The interface contract is the reference's (vector_index.go:23-40:
 (vector, k, allowList) -> (ids, dists)); the device does the work in
 batches:
 
-- the shard's vectors live on the card as one padded [capacity, D] f32
-  tensor, with an [capacity] f32 row-norm vector (l2), a [capacity] bool
-  tombstone mask and a [capacity] int64 slot->doc column;
+- uncompressed, the shard's vectors live on the card as one padded
+  [capacity, D] f32 tensor, with an [capacity] f32 row-norm vector (l2),
+  a [capacity] bool tombstone mask and a [capacity] int64 slot->doc
+  column;
 - a query batch of 8 rows or more runs the group-min fast scan
-  (ops/gmin_scan.py, the hand-written Hopper kernel) and an exact f32
+  (ops/gmin_scan.py, the hand-written Hopper kernel K1) and an exact f32
   rescore; smaller batches, `exactTopK`, and the manhattan and hamming
   metrics run the chunked exact scan (`_search_full`);
 - allowLists below `flatSearchCutoff` take the gather tier: only the
@@ -20,20 +22,42 @@ batches:
   with one reference swap, readers grab it lock-free and run the whole
   two-phase dispatch (enqueue, then finalize) on it.
 
+Compression (compress.go analog; `compress()`, a `pq` block declared at
+creation, or `update_user_config` turning `pq.enabled` on). The codebook
+is fit on the stored rows, every row is encoded on the card, and the f32
+store is dropped: the card keeps [capacity, M] codes and their ||recon||^2,
+the f32 rows move to host memory (the gather tier and restarts read
+them), and `pq.rescore` (the default) keeps a bf16 copy of the rows on
+the card. `pq.bits` 4 adds a nibble-packed 16-centroid quantizer. Search
+then takes, in this order (`_dispatch_full_pq`):
+  1. bits 4: the three-stage funnel (ops/pq4.py, kernel K3);
+  2. rescore: the fast scan over the bf16 copy (K1's bf16 instantiation)
+     and an exact rescore of its rows;
+  3. codes only: the ADC group-min scan (ops/pq_gmin.py, kernel K2) and
+     an exact-ADC rescore;
+  4. codes only, shapes K2 does not take (B < 8, C > 256, exactTopK):
+     the chunked reconstruction scan (`_search_pq_recon`);
+  5. manhattan: the chunked LUT scan (`_search_pq`).
+The codebook persists as `pq.npz` (and `pq4.npz`) in the reference's
+layout; a restart replays `vector.log` and re-encodes against it, so a
+compressed shard restarts in either package.
+
 Writes and snapshots. The JAX package replaces every device array on
 every write. Here two kinds of write stay in place, because no published
 snapshot can see what they change:
-  - new rows (store, row norms, slot->doc) land only at slots >= self.n,
-    and every published snapshot has n <= self.n. A snapshot masks every
-    slot at or past its own n (the scan's bias and valid mask, the gather
-    tier's slot list, the translation's slot indices all stay below it),
-    so a row written there cannot change its answers. On the card the
-    write is also ordered on the stream after every dispatch already
-    enqueued.
-  - the rescore-block cache is rebuilt when the store's write generation
-    moves (a snapshot carries the generation it was published at).
+  - new rows (store, row norms, codes, the bf16 copy, host rows,
+    slot->doc) land only at slots >= self.n, and every published snapshot
+    has n <= self.n. A snapshot masks every slot at or past its own n (the
+    scan's bias and valid mask, the gather tier's slot list, the
+    translation's slot indices all stay below it), so a row written there
+    cannot change its answers. On the card the write is also ordered on
+    the stream after every dispatch already enqueued.
+  - the block layouts of the rescore gathers are rebuilt when the write
+    generation moves (a snapshot carries the generation it was published
+    at).
 Everything a snapshot does read changes out of place: tombstones are
-cloned before a delete sets them, and growth allocates new tensors.
+cloned before a delete sets them, and growth and compression allocate
+new tensors.
 
 Durability: an append-only binary vector log per shard (add/delete
 records), replayed at startup, in the JAX package's on-disk format
@@ -43,6 +67,7 @@ package restores in the other.
 
 from __future__ import annotations
 
+import logging
 import os
 import struct
 import threading
@@ -51,16 +76,22 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from weaviate_tpu_torch.compress.pq import (ProductQuantizer, build_lut, lut_scan_block,
+                                            pack_codes4)
+from weaviate_tpu_torch.config.config import (PQ4_FUNNEL_C_BUCKETS,
+                                              PQ4_FUNNEL_RESCORE_BUCKETS, RESCORE_R_BUCKETS)
 from weaviate_tpu_torch.device import resolve_device
 from weaviate_tpu_torch.entities import vectorindex as vi
 from weaviate_tpu_torch.index.interface import AllowList, VectorIndex
-from weaviate_tpu_torch.ops import gmin_scan
+from weaviate_tpu_torch.ops import gmin_scan, pq4, pq_gmin
 from weaviate_tpu_torch.ops.distances import DISTANCE_FNS
 from weaviate_tpu_torch.ops.topk import (bitmap_to_mask, merge_top_k,
                                          rescore_distances, smallest_k,
                                          translate_pack, unpack_fused)
 from weaviate_tpu_torch.storage.bitmap import (Bitmap, allowed_mask,
                                                pack_allow_words)
+
+_log = logging.getLogger(__name__)
 
 _CHUNK = 8192          # rows per device write
 _MIN_CAPACITY = 16384
@@ -77,14 +108,9 @@ _B_BUCKETS = (1, 4, 16, 64, 256, 1024)
 # rows of the store scored per chunked-scan step: bounds the [B, chunk]
 # distance block
 _SCAN_CHUNK = 131072
+# rows of the code matrix scored per LUT-scan step
+_PQ_SCAN_CHUNK = 32768
 
-# fast-scan candidate depth bounds of the chunked scan (the JAX package's
-# RESCORE_R_BUCKETS ends)
-_RESCORE_R_MIN = 32
-_RESCORE_R_MAX = 128
-
-_NO_PQ = ("the compressed (PQ) tiers are not ported yet: ROADMAP queue 1 "
-          "item 7 (8-bit PQ) and item 8 (4-bit funnel)")
 _NO_IVF = "the IVF scan plane is not ported yet: ROADMAP queue 1 item 9"
 
 
@@ -102,12 +128,24 @@ def _bucket_b(b: int) -> int:
     return ((b + 1023) // 1024) * 1024
 
 
-def _grow(t: torch.Tensor, new_cap: int, fill) -> torch.Tensor:
+def _grow(t: Optional[torch.Tensor], new_cap: int, fill) -> Optional[torch.Tensor]:
     """A new [new_cap, ...] tensor holding t's rows then `fill`: growth
     never touches the tensor a published snapshot holds."""
+    if t is None:
+        return None
     out = torch.full((new_cap, *t.shape[1:]), fill, dtype=t.dtype, device=t.device)
     out[: t.shape[0]] = t
     return out
+
+
+def _valid_slots(tombs, n, base, chunk, allow_words, use_allow):
+    """[chunk] bool: slots base.. of this chunk that are below n, not
+    tombstoned and allowed."""
+    lane = torch.arange(chunk, device=tombs.device)
+    valid = (lane + base < n) & ~tombs[base: base + chunk]
+    if use_allow:
+        valid = valid & bitmap_to_mask(allow_words[base // 32: (base + chunk) // 32], chunk)
+    return valid
 
 
 def _search_full(store, sq_norms, tombs, n, q, allow_words, k, metric, use_allow,
@@ -115,12 +153,13 @@ def _search_full(store, sq_norms, tombs, n, q, allow_words, k, metric, use_allow
     """Full-store masked kNN: a loop over store chunks, each one [B, chunk]
     distance block and a per-chunk top-k, merged exactly.
 
-    rescore_r > 0 keeps the top max(k, rescore_r) candidates of the scan
-    and rescores them exactly in f32 before the final top-k (the JAX
-    package's fast-scan-then-rescore shape; here the scan itself is
-    already full f32). Candidates whose scan distance was +inf (dead
-    slots) stay +inf through the rescore. -> ([B, k] dists, [B, k] slot
-    idx int32, -1 for missing)."""
+    The store is f32, or the bf16 rescore copy of a compressed index;
+    the scan scores the query rounded to the store's type, as the JAX
+    package does. rescore_r > 0 keeps the top max(k, rescore_r)
+    candidates of the scan and rescores them exactly in f32 against the
+    f32 query before the final top-k. Candidates whose scan distance was
+    +inf (dead slots) stay +inf through the rescore. -> ([B, k] dists,
+    [B, k] slot idx int32, -1 for missing)."""
     cap, _ = store.shape
     chunk = min(cap, _SCAN_CHUNK)
     nchunks = cap // chunk
@@ -128,17 +167,15 @@ def _search_full(store, sq_norms, tombs, n, q, allow_words, k, metric, use_allow
         nchunks = max(1, min(nchunks, active_chunks))
     b = q.shape[0]
     dev = store.device
+    qd = q.to(store.dtype)
     kk = max(k, rescore_r) if rescore_r else k
     top = torch.full((b, kk), float("inf"), dtype=torch.float32, device=dev)
     idx = torch.full((b, kk), -1, dtype=torch.int64, device=dev)
-    lane = torch.arange(chunk, device=dev)
     for ci in range(nchunks):
         base = ci * chunk
-        valid = (lane + base < n) & ~tombs[base: base + chunk]
-        if use_allow:
-            valid = valid & bitmap_to_mask(allow_words[base // 32: (base + chunk) // 32], chunk)
+        valid = _valid_slots(tombs, n, base, chunk, allow_words, use_allow)
         norms = sq_norms[base: base + chunk] if sq_norms is not None else None
-        d = DISTANCE_FNS[metric](q, store[base: base + chunk], norms)
+        d = DISTANCE_FNS[metric](qd, store[base: base + chunk], norms)
         d = torch.where(valid[None, :], d, float("inf"))
         td, li = smallest_k(d, kk)
         top, idx = merge_top_k(top, idx, td, li + base, kk)
@@ -152,17 +189,84 @@ def _search_full(store, sq_norms, tombs, n, q, allow_words, k, metric, use_allow
     return top, idx
 
 
-def _search_gathered(store, q, rows, tombs, k, metric):
+def _score_rows(sub, q, rows, tombs, k, metric):
     """Gather tier (flat_search.go:19 analog): score only the allowList's
-    rows. rows [R] int64 store slots; the dispatching snapshot's tombs
-    mask them on the device. -> ([B, k] dists, [B, k] positions into
-    rows, -1 for missing)."""
-    sub = store[rows]
-    dists = DISTANCE_FNS[metric](q, sub, None)
+    rows. sub [R, D] f32 holds them (gathered from the store, or uploaded
+    from the host rows of a compressed index), rows [R] int64 their store
+    slots; the dispatching snapshot's tombs mask them on the device. ->
+    ([B, k] dists, [B, k] positions into rows, -1 for missing)."""
+    dists = DISTANCE_FNS[metric](q.to(sub.dtype), sub, None)
     live = ~tombs[rows]
     masked = torch.where(live[None, :], dists, float("inf"))
     top, idx = smallest_k(masked, k)
     return top, torch.where(torch.isinf(top), -1, idx)
+
+
+def _search_pq_recon(codes, recon_norms, tombs, n, pq, q, allow_words, k, r_chunk, metric,
+                     use_allow, active_chunks=None):
+    """The codes-only scan for the shapes K2 does not take (matmul metrics):
+    each store chunk's codes rebuild a [chunk, D] bf16 block from the bf16
+    codebook, scored by one product with the bf16-rounded (rotated) query
+    in f32 (ADC distance = distance to the reconstruction, segments being
+    disjoint dims); each chunk keeps its top r_chunk, and the pool of
+    every chunk's winners gives the final top-k. -> ([B, k] ADC dists,
+    [B, k] slot idx int32, -1 missing)."""
+    cap, m = codes.shape
+    chunk = min(cap, _SCAN_CHUNK)
+    nchunks = cap // chunk
+    if active_chunks is not None:
+        nchunks = max(1, min(nchunks, active_chunks))
+    qr = q.float()
+    rot = pq.rotation_dev()
+    if rot is not None:
+        qr = qr @ rot
+    qd = qr.to(torch.bfloat16).float()
+    q_sq = torch.sum(qr ** 2, dim=-1, keepdim=True)
+    cb = pq.codebook_bf16()
+    tds, lis = [], []
+    for ci in range(nchunks):
+        base = ci * chunk
+        recon = pq_gmin.reconstruct(codes[base: base + chunk], cb).float()
+        qx = qd @ recon.T
+        if metric == vi.DISTANCE_L2:
+            d = torch.clamp(q_sq - 2.0 * qx + recon_norms[base: base + chunk][None, :], min=0.0)
+        elif metric == vi.DISTANCE_DOT:
+            d = -qx
+        else:  # cosine: queries normalized; recon approximates unit rows
+            d = 1.0 - qx
+        valid = _valid_slots(tombs, n, base, chunk, allow_words, use_allow)
+        d = torch.where(valid[None, :], d, float("inf"))
+        td, li = smallest_k(d, r_chunk)
+        tds.append(td)
+        lis.append(li + base)
+    top, pos = smallest_k(torch.cat(tds, dim=1), k)
+    idx = torch.gather(torch.cat(lis, dim=1), 1, pos)
+    return top, torch.where(torch.isinf(top), -1, idx).to(torch.int32)
+
+
+def _search_pq(codes, tombs, n, lut, allow_words, r, use_allow, active_chunks=None):
+    """The LUT scan (manhattan): the code matrix in chunks, each scored by
+    the additive LUT gather (compress/pq.lut_scan_block,
+    product_quantization.go:56-75 LookUp), with an exact merge of the
+    top-r slots across chunks. -> ([B, r] ADC dists, [B, r] slot idx
+    int32, -1 missing)."""
+    cap, _ = codes.shape
+    chunk = min(cap, _PQ_SCAN_CHUNK)
+    nchunks = cap // chunk
+    if active_chunks is not None:
+        nchunks = max(1, min(nchunks, active_chunks))
+    b = lut.shape[0]
+    dev = codes.device
+    top = torch.full((b, r), float("inf"), dtype=torch.float32, device=dev)
+    idx = torch.full((b, r), -1, dtype=torch.int64, device=dev)
+    for ci in range(nchunks):
+        base = ci * chunk
+        valid = _valid_slots(tombs, n, base, chunk, allow_words, use_allow)
+        d = lut_scan_block(codes[base: base + chunk], lut)
+        d = torch.where(valid[None, :], d, float("inf"))
+        td, li = smallest_k(d, r)
+        top, idx = merge_top_k(top, idx, td, li + base, r)
+    return top, torch.where(torch.isinf(top), -1, idx).to(torch.int32)
 
 
 def _prep_bulk_run(ids: np.ndarray, vecs: np.ndarray, metric: str, known_fn):
@@ -609,11 +713,14 @@ class IndexSnapshot:
     snapshot with one reference swap (`GpuVectorIndex._publish_snapshot`);
     readers grab the current reference lock-free and dispatch on it. See
     the module docstring for why the in-place row writes never reach what
-    a snapshot reads."""
+    a snapshot reads. A compressed snapshot carries the codes, the
+    quantizers and the bf16 copy in place of the f32 store."""
 
     __slots__ = ("gen", "dim", "capacity", "n", "live", "store", "sq_norms",
                  "tombs", "slot_to_doc", "slot_to_doc_dev", "host_tombs",
-                 "allow_token", "store_gen")
+                 "allow_token", "store_gen", "compressed", "pq", "codes",
+                 "recon_norms", "rescore_dev", "rescore_sq_norms", "host_vecs",
+                 "pq4", "codes4", "recon_norms4")
 
     def __init__(self, gen: int, idx: "GpuVectorIndex"):
         self.gen = gen
@@ -629,6 +736,16 @@ class IndexSnapshot:
         self.host_tombs = idx._host_tombs
         self.allow_token = idx._allow_token
         self.store_gen = idx._store_gen
+        self.compressed = idx.compressed
+        self.pq = idx._pq
+        self.codes = idx._codes
+        self.recon_norms = idx._recon_norms
+        self.rescore_dev = idx._rescore_dev
+        self.rescore_sq_norms = idx._rescore_sq_norms
+        self.host_vecs = idx._host_vecs
+        self.pq4 = idx._pq4
+        self.codes4 = idx._codes4
+        self.recon_norms4 = idx._recon_norms4
 
 
 class GpuVectorIndex(VectorIndex):
@@ -640,8 +757,6 @@ class GpuVectorIndex(VectorIndex):
         device=None,
         persist: bool = True,
     ):
-        if config.pq.enabled:
-            raise NotImplementedError(_NO_PQ)
         self.config = config
         self.metric = config.distance
         self.shard_path = shard_path
@@ -657,7 +772,7 @@ class GpuVectorIndex(VectorIndex):
         self._sq_norms: Optional[torch.Tensor] = None  # [capacity] f32 (l2)
         self._tombs: Optional[torch.Tensor] = None     # [capacity] bool
         self._s2d_dev: Optional[torch.Tensor] = None   # [capacity] int64, -1 unwritten
-        self._store_gen = 0  # bumped by every in-place store write
+        self._store_gen = 0  # bumped by every in-place row write
         self._slot_to_doc = np.zeros(0, dtype=np.int64)
         self._host_tombs = np.zeros(0, dtype=bool)
         self._doc_to_slot: dict[int, int] = {}
@@ -670,8 +785,27 @@ class GpuVectorIndex(VectorIndex):
         self._pending_tombs: list[int] = []
         # identity token for the per-allowList filter caches
         self._allow_token = object()
-        # (store tensor, store generation, [ncols, G*D] rescore blocks)
-        self._blk_cache: Optional[tuple] = None
+        # block layouts of the rescore gathers, by source name: (source
+        # tensor, write generation, layout)
+        self._blk_cache: dict[str, tuple] = {}
+        # PQ state: when compressed the card holds codes (and, with
+        # pq.rescore, a bf16 copy of the rows) instead of the f32 store;
+        # the f32 rows move to host memory
+        self.compressed = False
+        self._pq: Optional[ProductQuantizer] = None
+        self._codes: Optional[torch.Tensor] = None             # [capacity, M]
+        self._recon_norms: Optional[torch.Tensor] = None       # [capacity] f32 ||recon||^2
+        self._rescore_dev: Optional[torch.Tensor] = None       # [capacity, D] bf16
+        self._rescore_sq_norms: Optional[torch.Tensor] = None  # [capacity] f32 (l2)
+        self._host_vecs: Optional[np.ndarray] = None           # [capacity, D] f32
+        # 4-bit funnel ladder (pq.bits=4): a 16-centroid quantizer sharing
+        # the 8-bit one's rotation, its nibble-packed codes and norms
+        self._pq4: Optional[ProductQuantizer] = None
+        self._codes4: Optional[torch.Tensor] = None            # [capacity, M/2] uint8
+        self._recon_norms4: Optional[torch.Tensor] = None      # [capacity] f32
+        self._pq_path = os.path.join(shard_path, "pq.npz")
+        self._pq4_path = os.path.join(shard_path, "pq4.npz")
+        self._restoring = False
         self._log = VectorLog(os.path.join(shard_path, "vector.log")) if persist else None
         if self._log is not None:
             self._restore()
@@ -679,14 +813,33 @@ class GpuVectorIndex(VectorIndex):
     # -- lifecycle -----------------------------------------------------------
 
     def _restore(self) -> None:
-        """Replay the vector log (startup.go:56 restoreFromDisk analog)."""
-        replay_stats: dict = {}
-        for op, ids, vecs in VectorLog.replay_batches(self._log.path, stats=replay_stats):
-            if op == "add":
-                self._bulk_stage_add(ids, vecs)
-            else:
-                self._stage_delete(int(ids), log=False)
-        VectorLog.report_replay_stats(self._log.path, replay_stats)
+        """Replay the vector log (startup.go:56 restoreFromDisk analog); if a
+        persisted PQ codebook exists, re-enter compressed mode by encoding
+        the replayed rows against it (the analog of the commit log's AddPQ
+        replay). A codebook this index cannot use (a rejected config, a
+        corrupt file, a dim mismatch) leaves the shard serving
+        uncompressed, with a warning."""
+        self._restoring = True
+        try:
+            replay_stats: dict = {}
+            for op, ids, vecs in VectorLog.replay_batches(self._log.path, stats=replay_stats):
+                if op == "add":
+                    self._bulk_stage_add(ids, vecs)
+                else:
+                    self._stage_delete(int(ids), log=False)
+            VectorLog.report_replay_stats(self._log.path, replay_stats)
+            if os.path.exists(self._pq_path):
+                self._flush_pending()
+                if self.n > 0:
+                    try:
+                        pq = ProductQuantizer.load(self._pq_path, device=self.device)
+                        self._enable_pq(pq, self._store[: self.n], save=False)
+                    except Exception as e:  # noqa: BLE001 — an unusable file, see above
+                        self.config.pq.enabled = False
+                        _log.warning("persisted pq codebook rejected (%s: %s); "
+                                     "serving uncompressed", type(e).__name__, e)
+        finally:
+            self._restoring = False
 
     def post_startup(self) -> None:
         with self._lock:
@@ -706,15 +859,26 @@ class GpuVectorIndex(VectorIndex):
         self._host_tombs = np.zeros(self.capacity, dtype=bool)
 
     def _ensure_capacity(self, needed: int) -> None:
-        if self._store is None:
+        if self._store is None and self._codes is None:
             raise RuntimeError("store not initialised")
         cap = self.capacity
         while cap < needed:
             cap *= 2  # geometric growth (maintainance.go:31)
         if cap == self.capacity:
             return
-        self._store = _grow(self._store, cap, 0.0)
-        self._sq_norms = _grow(self._sq_norms, cap, 0.0)
+        if self.compressed:
+            self._codes = _grow(self._codes, cap, 0)
+            self._recon_norms = _grow(self._recon_norms, cap, 0.0)
+            self._rescore_dev = _grow(self._rescore_dev, cap, 0.0)
+            self._rescore_sq_norms = _grow(self._rescore_sq_norms, cap, 0.0)
+            self._codes4 = _grow(self._codes4, cap, 0)
+            self._recon_norms4 = _grow(self._recon_norms4, cap, 0.0)
+            hv = np.zeros((cap, self.dim), np.float32)
+            hv[: self.capacity] = self._host_vecs
+            self._host_vecs = hv
+        else:
+            self._store = _grow(self._store, cap, 0.0)
+            self._sq_norms = _grow(self._sq_norms, cap, 0.0)
         self._tombs = _grow(self._tombs, cap, False)
         self._s2d_dev = _grow(self._s2d_dev, cap, -1)
         self._store_gen += 1
@@ -732,7 +896,9 @@ class GpuVectorIndex(VectorIndex):
         chunk writes do (so both packages reach the same capacity). The
         copy is in place: every slot written is >= self.n (module
         docstring). Row norms are summed in f64 and rounded to f32, as the
-        JAX package does on the host."""
+        JAX package does on the host. Compressed, each chunk is encoded on
+        the device and lands as codes (and as bf16 rows with pq.rescore);
+        the f32 rows go to the host copy."""
         count = rows.shape[0]
         off = 0
         while off < count:
@@ -740,10 +906,25 @@ class GpuVectorIndex(VectorIndex):
             self._ensure_capacity(start + off + _CHUNK)
             chunk = torch.from_numpy(np.ascontiguousarray(rows[off: off + take])).to(self.device)
             lo, hi = start + off, start + off + take
-            self._store[lo:hi] = chunk
-            if self.metric == vi.DISTANCE_L2:
-                self._sq_norms[lo:hi] = (chunk.double() ** 2).sum(1).float()
+            if self.compressed:
+                codes = self._pq.encode(chunk)
+                self._codes[lo:hi] = codes
+                self._recon_norms[lo:hi] = self._pq.recon_sq_norms(codes)
+                if self._pq4 is not None:
+                    codes4 = self._pq4.encode(chunk)
+                    self._codes4[lo:hi] = pack_codes4(codes4)
+                    self._recon_norms4[lo:hi] = self._pq4.recon_sq_norms(codes4)
+                if self._rescore_dev is not None:
+                    self._rescore_dev[lo:hi] = chunk.to(torch.bfloat16)
+                    if self._rescore_sq_norms is not None:
+                        self._rescore_sq_norms[lo:hi] = (chunk.double() ** 2).sum(1).float()
+            else:
+                self._store[lo:hi] = chunk
+                if self.metric == vi.DISTANCE_L2:
+                    self._sq_norms[lo:hi] = (chunk.double() ** 2).sum(1).float()
             off += take
+        if self.compressed:
+            self._host_vecs[start: start + count] = rows
         self._store_gen += 1
 
     def _stage_add(self, doc_id: int, vector: np.ndarray, log: bool = True) -> None:
@@ -862,6 +1043,7 @@ class GpuVectorIndex(VectorIndex):
             self.n += count
             self._pending.clear()
         self._apply_pending_tombs()
+        self._maybe_declared_compress()
         if flushed or self._published_gen != self._staged_gen:
             # publication is the LAST step: readers grabbing the new
             # reference must see every staged mutation already applied
@@ -879,6 +1061,22 @@ class GpuVectorIndex(VectorIndex):
         self._tombs = tombs
         self._host_tombs[idx] = True
         self._pending_tombs.clear()
+
+    def _maybe_declared_compress(self) -> None:
+        """pq.enabled set at creation: compress once enough rows exist to
+        fit the codebook (the reference needs an explicit config update;
+        the JAX package also honours the declarative form). Runs on every
+        flush and every batch write, never during a restore. A pq config
+        that turns out invalid only once the dims are known disables
+        compression with a warning instead of failing every later write."""
+        if (self.config.pq.enabled and not self.compressed and not self._restoring
+                and self.n >= max(256, self.config.pq.centroids)):
+            try:
+                self._compress_locked()
+            except vi.ConfigValidationError as e:
+                self.config.pq.enabled = False
+                _log.warning("declared pq config is invalid (%s); auto-disabling "
+                             "compression for this index", e)
 
     # -- snapshot publication / lock-free reads ------------------------------
 
@@ -905,20 +1103,43 @@ class GpuVectorIndex(VectorIndex):
     def load_state(self, state) -> None:
         """Install device state carried over from another index (see
         weaviate_tpu_torch.state.state_from_arrays) into this empty index
-        and publish it. A persistent index rewrites its vector log with the
-        live rows, so a restart restores the same answers."""
+        and publish it. A compressed state installs its quantizers, codes,
+        bf16 copy and host rows. A persistent index rewrites its vector log
+        with the live rows (and saves the codebooks), so a restart restores
+        the same answers."""
         with self._lock:
             if self.n or self._pending or self._pending_tombs:
                 raise ValueError("load_state needs an empty index")
             cap, n, dim = int(state.capacity), int(state.n), int(state.dim)
             if cap < _MIN_CAPACITY or cap & (cap - 1) or not 0 <= n <= cap:
                 raise ValueError(f"bad carried state: capacity {cap}, n {n}")
-            if tuple(state.store.shape) != (cap, dim):
-                raise ValueError(f"store shape {tuple(state.store.shape)} != {(cap, dim)}")
             dev = self.device
+            if state.pq is None:
+                if tuple(state.store.shape) != (cap, dim):
+                    raise ValueError(f"store shape {tuple(state.store.shape)} != {(cap, dim)}")
+                self._store = state.store.to(dev, torch.float32).contiguous()
+                self._sq_norms = state.sq_norms.to(dev, torch.float32).contiguous()
+            else:
+                if state.host_vecs.shape != (cap, dim):
+                    raise ValueError(f"host rows {state.host_vecs.shape} != {(cap, dim)}")
+                self._store = self._sq_norms = None
+                self._pq, self._pq4 = state.pq, state.pq4
+                self._codes = state.codes.to(dev).contiguous()
+                self._recon_norms = state.recon_norms.to(dev, torch.float32).contiguous()
+                self._host_vecs = np.array(state.host_vecs, dtype=np.float32)
+                self._rescore_dev = self._rescore_sq_norms = None
+                if state.rescore is not None:
+                    self._rescore_dev = state.rescore.to(dev, torch.bfloat16).contiguous()
+                    if state.rescore_sq_norms is not None:
+                        self._rescore_sq_norms = state.rescore_sq_norms.to(
+                            dev, torch.float32).contiguous()
+                self._codes4 = self._recon_norms4 = None
+                if state.pq4 is not None:
+                    self._codes4 = state.codes4.to(dev).contiguous()
+                    self._recon_norms4 = state.recon_norms4.to(dev, torch.float32).contiguous()
+                self.compressed = True
+                self.config.pq.enabled = True
             self.dim, self.capacity, self.n = dim, cap, n
-            self._store = state.store.to(dev, torch.float32).contiguous()
-            self._sq_norms = state.sq_norms.to(dev, torch.float32).contiguous()
             self._tombs = state.tombs.to(dev, torch.bool).contiguous()
             self._slot_to_doc = np.array(state.slot_to_doc, dtype=np.int64)
             self._s2d_dev = torch.from_numpy(self._slot_to_doc.copy()).to(dev)
@@ -929,10 +1150,112 @@ class GpuVectorIndex(VectorIndex):
             self._store_gen += 1
             self._allow_token = object()
             if self._log is not None:
-                rows = self._store[torch.from_numpy(live).to(dev)].cpu().numpy()
+                if self.compressed:
+                    rows = self._host_vecs[live]
+                    self._save_codebooks()
+                else:
+                    rows = self._store[torch.from_numpy(live).to(dev)].cpu().numpy()
                 self._log.rewrite(zip(self._slot_to_doc[live].tolist(), rows))
             self._staged_gen += 1
             self._publish_snapshot()
+
+    # -- product quantization (compress.go analog) ---------------------------
+
+    def compress(self) -> None:
+        """Fit PQ on the stored rows, encode them all and swap the device
+        f32 store for codes (compress.go:39: fit on the cached vectors,
+        encode, persist the codebook, drop the float cache)."""
+        with self._lock:
+            if self._pending or self._pending_tombs:
+                self._flush_pending()
+            self._compress_locked()
+
+    def _compress_locked(self) -> None:
+        if self.compressed:
+            return
+        if self.n == 0:
+            raise RuntimeError("compress requires imported vectors to fit on")
+        pqc = self.config.pq
+        pq = ProductQuantizer(dim=self.dim, segments=pqc.segments, centroids=pqc.centroids,
+                              metric=self.metric, encoder=pqc.encoder.type,
+                              distribution=pqc.encoder.distribution, rotation=pqc.rotation,
+                              device=self.device)
+        vecs = self._store[: self.n]
+        pq.fit(vecs)
+        self._enable_pq(pq, vecs, save=True)
+
+    def _fit_pq4(self, pq: ProductQuantizer, vecs_n: torch.Tensor) -> ProductQuantizer:
+        """The funnel's 4-bit quantizer: pq's segments, 16 centroids, fit in
+        pq's rotated space (its rotation pinned, not re-learned)."""
+        pq4q = ProductQuantizer(dim=self.dim, segments=pq.segments, centroids=pq4.C4,
+                                metric=self.metric, encoder=vi.PQ_ENCODER_KMEANS,
+                                distribution=self.config.pq.encoder.distribution,
+                                rotation=vi.PQ_ROTATION_NONE, device=self.device)
+        pq4q.fit(vecs_n, rotation_matrix=pq.rotation_matrix)
+        return pq4q
+
+    def _obtain_pq4(self, pq: ProductQuantizer, vecs_n: torch.Tensor) -> ProductQuantizer:
+        """A restore takes the persisted pq4.npz (the same codebook across
+        restarts); anything else, or a file that does not fit, refits."""
+        if self._restoring and os.path.exists(self._pq4_path):
+            try:
+                pq4q = ProductQuantizer.load(self._pq4_path, device=self.device)
+                if pq4q.segments == pq.segments and pq4q.centroids == pq4.C4:
+                    return pq4q
+            except Exception as e:  # noqa: BLE001 — a refit is always safe
+                _log.warning("persisted pq4 codebook rejected (%s: %s); refitting",
+                             type(e).__name__, e)
+        return self._fit_pq4(pq, vecs_n)
+
+    def _enable_pq(self, pq: ProductQuantizer, vecs_n: torch.Tensor, save: bool) -> None:
+        """Encode the n stored rows [n, D] (f32, on the device) with pq and
+        switch the index to compressed mode; every new tensor is built
+        before any attribute changes, so a failure leaves the index as it
+        was."""
+        n, cap, dev = self.n, self.capacity, self.device
+        vecs_n = vecs_n.to(dev, torch.float32)
+        codes = pq.encode(vecs_n)
+        full = torch.zeros((cap, pq.segments), dtype=pq.code_dtype, device=dev)
+        full[:n] = codes
+        norms = torch.zeros(cap, dtype=torch.float32, device=dev)
+        norms[:n] = pq.recon_sq_norms(codes)
+        hv = np.zeros((cap, self.dim), np.float32)
+        hv[:n] = vecs_n.cpu().numpy()
+        rescore = rescore_sq = None
+        if self.config.pq.rescore:
+            rescore = torch.zeros((cap, self.dim), dtype=torch.bfloat16, device=dev)
+            rescore[:n] = vecs_n.to(torch.bfloat16)
+            if self.metric == vi.DISTANCE_L2:
+                rescore_sq = torch.zeros(cap, dtype=torch.float32, device=dev)
+                rescore_sq[:n] = (vecs_n.double() ** 2).sum(1).float()
+        pq4q = codes4 = norms4 = None
+        if self.config.pq.bits == 4:
+            pq4q = self._obtain_pq4(pq, vecs_n)
+            c4 = pq4q.encode(vecs_n)
+            codes4 = torch.zeros((cap, pq4q.segments // 2), dtype=torch.uint8, device=dev)
+            codes4[:n] = pack_codes4(c4)
+            norms4 = torch.zeros(cap, dtype=torch.float32, device=dev)
+            norms4[:n] = pq4q.recon_sq_norms(c4)
+        self._codes, self._recon_norms, self._host_vecs = full, norms, hv
+        self._rescore_dev, self._rescore_sq_norms = rescore, rescore_sq
+        self._pq4, self._codes4, self._recon_norms4 = pq4q, codes4, norms4
+        self._store = self._sq_norms = None
+        self._blk_cache.pop("store", None)
+        self._pq = pq
+        self.compressed = True
+        self.config.pq.enabled = True
+        if save:
+            self._save_codebooks()
+        self._store_gen += 1
+        self._staged_gen += 1
+        self._publish_snapshot()
+
+    def _save_codebooks(self) -> None:
+        if self._log is None:
+            return
+        self._pq.save(self._pq_path)
+        if self._pq4 is not None:
+            self._pq4.save(self._pq4_path)
 
     # -- VectorIndex ---------------------------------------------------------
 
@@ -978,6 +1301,7 @@ class GpuVectorIndex(VectorIndex):
             # deletes staged before this batch land in the same snapshot
             # (the JAX package's add_batch publishes without them)
             self._apply_pending_tombs()
+            self._maybe_declared_compress()
             self._publish_snapshot()
 
     def delete(self, *doc_ids: int) -> None:
@@ -1019,23 +1343,26 @@ class GpuVectorIndex(VectorIndex):
 
     def _rescore_r(self, k: int, n: int) -> int:
         """Chunked-scan candidate depth for the exact rescore: 4k clamped
-        to [32, 128]; 0 (no rescore) for exactTopK, the non-matmul metrics,
-        or when the depth would leave no slack over k."""
+        to the RESCORE_R_BUCKETS ends; 0 (no rescore) for exactTopK, the
+        non-matmul metrics, or when the depth would leave no slack over
+        k."""
         if self.config.exact_topk or self.metric not in vi.MATMUL_DISTANCES:
             return 0
-        r = int(min(max(4 * k, _RESCORE_R_MIN), _RESCORE_R_MAX, max(n, 1)))
+        r = int(min(max(4 * k, RESCORE_R_BUCKETS[0]), RESCORE_R_BUCKETS[-1], max(n, 1)))
         return r if r >= 2 * k else 0
 
-    def _gen_blocks(self, snap: IndexSnapshot) -> torch.Tensor:
-        """The [ncols, G*D] rescore-block layout of snap's store, rebuilt
-        when the store tensor or its write generation changes. Concurrent
-        readers may race here; a lost race only recomputes the layout."""
-        hit = self._blk_cache
-        if hit is not None and hit[0] is snap.store and hit[1] == snap.store_gen:
+    def _gen_blocks(self, name: str, src: torch.Tensor, gen: int, build) -> torch.Tensor:
+        """The block layout build(src) of a snapshot's tensor, cached per
+        source name and rebuilt when the tensor or its write generation
+        changes (the old layout is freed before the new one is built).
+        Concurrent readers may race here; a lost race only recomputes the
+        layout."""
+        hit = self._blk_cache.get(name)
+        if hit is not None and hit[0] is src and hit[1] == gen:
             return hit[2]
-        self._blk_cache = None  # free the old layout before building the new
-        blk = gmin_scan.build_rescore_blocks(snap.store)
-        self._blk_cache = (snap.store, snap.store_gen, blk)
+        self._blk_cache.pop(name, None)
+        blk = build(src)
+        self._blk_cache[name] = (src, gen, blk)
         return blk
 
     def _prep_queries(self, vectors: np.ndarray) -> tuple[np.ndarray, int]:
@@ -1125,8 +1452,6 @@ class GpuVectorIndex(VectorIndex):
             b = 1 if np.asarray(vectors).ndim == 1 else len(vectors)
             empty = (np.zeros((b, 0), dtype=np.uint64), np.zeros((b, 0), dtype=np.float32))
             return lambda: empty
-        if self.config.pq.enabled:
-            raise NotImplementedError(_NO_PQ)
         if _ivf_requested(snap.n):
             raise NotImplementedError(_NO_IVF)
         q_host, b = self._prep_queries(vectors)
@@ -1136,55 +1461,158 @@ class GpuVectorIndex(VectorIndex):
         k_eff = min(k, snap.live)
         if allow_list is not None and len(allow_list) < self.config.flat_search_cutoff:
             return self._dispatch_small_allow(snap, q, b, k_eff, allow_list)
+        if snap.compressed:
+            return self._dispatch_full_pq(snap, q, b, k_eff, allow_list)
         allow_words = (self._allow_words(snap, allow_list)
                        if allow_list is not None else None)
         return self._dispatch_scan(snap, q, b, k_eff, allow_words)
 
     def _dispatch_scan(self, snap: IndexSnapshot, q: torch.Tensor, b: int,
-                       k_eff: int, allow_words):
-        """Full-store scan: the group-min fast scan when `_use_gmin` allows
-        it, the chunked exact scan otherwise; the slot->doc translation
-        runs on the device in both."""
+                       k_eff: int, allow_words, store=None, sq_norms=None):
+        """Full-store scan over `store`: the f32 store uncompressed, the
+        bf16 rescore copy under PQ with rescore. The group-min fast scan
+        when `_use_gmin` allows it, the chunked exact scan otherwise; the
+        slot->doc translation runs on the device in both."""
         kk = min(max(k_eff, 1), snap.n)
         use_allow = allow_words is not None
+        if store is None:
+            store, sq_norms, name = snap.store, snap.sq_norms, "store"
+        else:
+            name = "rescore"
         if self._use_gmin(snap, q.shape[0], kk):
             ncols = snap.capacity // gmin_scan.G
             packed = gmin_scan.search_gmin_fused(
-                snap.store, snap.sq_norms, snap.tombs, snap.n, q, allow_words,
+                store, sq_norms, snap.tombs, snap.n, q, allow_words,
                 snap.slot_to_doc_dev, use_allow, kk, self.metric,
                 self._gmin_rg(kk, snap.capacity),
                 active_g=-(-snap.n // ncols),  # live store slices only
-                rescore_blk=self._gen_blocks(snap))
+                rescore_blk=self._gen_blocks(name, store, snap.store_gen,
+                                             gmin_scan.build_rescore_blocks))
         else:
             top, idx = _search_full(
-                snap.store, snap.sq_norms if self.metric == vi.DISTANCE_L2 else None,
+                store, sq_norms if self.metric == vi.DISTANCE_L2 else None,
                 snap.tombs, snap.n, q, allow_words, kk, self.metric, use_allow,
                 -(-snap.n // _SCAN_CHUNK),
                 self._rescore_r(kk, snap.n))
             packed = translate_pack(top, idx, snap.slot_to_doc_dev)
         return self._finalize_fused(packed, b)
 
+    def _funnel_budgets(self, k: int, n: int) -> tuple[int, int]:
+        """(rg4 stage-1 groups, rc stage-2 survivors) of a funnel whose scan
+        plane holds n rows (the slab capacity): the top buckets of the two
+        funnel ladders, which is what the JAX package reads without a
+        control plane."""
+        return pq4.plan_funnel(k, n, PQ4_FUNNEL_C_BUCKETS[-1], PQ4_FUNNEL_RESCORE_BUCKETS[-1])
+
+    def _pq4_funnel_or_none(self, snap: IndexSnapshot, q: torch.Tensor, k: int,
+                            allow_words, use_allow: bool):
+        """The three-stage 4-bit funnel (ops/pq4.py) -> fused packed result,
+        or None when this index or k does not take it (the 8-bit tiers
+        serve then)."""
+        if snap.codes4 is None or snap.pq4 is None or self.metric not in vi.MATMUL_DISTANCES:
+            return None
+        kk = min(max(k, 1), snap.live)
+        ncols = snap.capacity // gmin_scan.G
+        rg4, rc = self._funnel_budgets(kk, snap.capacity)
+        if rc < kk:
+            return None  # candidate set too small to cover k
+        pq8 = snap.pq
+        return pq4.search_pq4_funnel_fused(
+            snap.codes4, snap.codes, snap.recon_norms4, snap.recon_norms, snap.tombs, snap.n,
+            q, snap.pq4.codebook_bf16(), snap.pq4.codebook_dev(),
+            pq8.codebook_dev().reshape(-1, pq8.ds), snap.rescore_dev, allow_words,
+            snap.slot_to_doc_dev, use_allow, kk, self.metric, rg4, rc,
+            active_g=max(1, -(-snap.n // ncols)),
+            kernel=pq4.use_kernel(self.metric, q.shape[0], ncols),
+            rot=snap.pq4.rotation_dev(),
+            codes8_blk=self._gen_blocks("codes", snap.codes, snap.store_gen,
+                                        pq_gmin.build_codes_blocks))
+
+    def _pq_gmin_or_none(self, snap: IndexSnapshot, q: torch.Tensor, k: int,
+                         allow_words, use_allow: bool):
+        """The codes kernel's search (ops/pq_gmin.py) -> fused packed
+        result, or None when `eligible_rg` routes this shape to the
+        reconstruction scan."""
+        ncols = snap.capacity // gmin_scan.G
+        kk = min(k, snap.live)
+        rg = pq_gmin.eligible_rg(self.config.exact_topk, self.metric, snap.pq, q.shape[0],
+                                 ncols, kk)
+        if rg is None:
+            return None
+        pq8 = snap.pq
+        return pq_gmin.search_pq_gmin_fused(
+            snap.codes, snap.recon_norms, snap.tombs, snap.n, q, pq8.codebook_bf16(),
+            pq8.codebook_dev().reshape(-1, pq8.ds), allow_words, snap.slot_to_doc_dev,
+            use_allow, kk, self.metric, rg, active_g=max(1, -(-snap.n // ncols)),
+            rot=pq8.rotation_dev(),
+            codes_blk=self._gen_blocks("codes", snap.codes, snap.store_gen,
+                                       pq_gmin.build_codes_blocks))
+
+    def _dispatch_full_pq(self, snap: IndexSnapshot, q: torch.Tensor, b: int, k: int,
+                          allow_list: Optional[AllowList]):
+        """Compressed full-store search, in the reference's order: the
+        4-bit funnel; the rescored tier (the fast scan reads the bf16 copy
+        directly: less traffic and more accurate than scanning the codes
+        first); the codes kernel; the reconstruction scan for the shapes
+        it does not take; the LUT scan for manhattan (hamming never
+        compresses)."""
+        pqc = self.config.pq
+        use_allow = allow_list is not None
+        allow_words = self._allow_words(snap, allow_list) if use_allow else None
+        packed = self._pq4_funnel_or_none(snap, q, k, allow_words, use_allow)
+        if packed is not None:
+            return self._finalize_fused(packed, b, k)
+        if pqc.rescore and snap.rescore_dev is not None:
+            return self._dispatch_scan(snap, q, b, k, allow_words, store=snap.rescore_dev,
+                                       sq_norms=snap.rescore_sq_norms)
+        packed = self._pq_gmin_or_none(snap, q, k, allow_words, use_allow)
+        if packed is not None:
+            return self._finalize_fused(packed, b, k)
+        if self.metric in vi.MATMUL_DISTANCES:
+            # per-chunk candidate depth: the pool of every chunk's winners
+            # stays >= 512 (pq.rescoreLimit) whatever the chunk count
+            nchunks = max(1, -(-snap.n // _SCAN_CHUNK))
+            pool_target = pqc.rescore_limit or 1024
+            r_chunk = min(max(2 * k, -(-pool_target // nchunks), 64), 256, snap.n)
+            r_chunk = max(r_chunk, min(-(-k // nchunks), snap.n))  # the pool covers k
+            top, idx = _search_pq_recon(
+                snap.codes, snap.recon_norms, snap.tombs, snap.n, snap.pq, q, allow_words,
+                min(k, snap.live), r_chunk, self.metric, use_allow,
+                -(-snap.n // _SCAN_CHUNK))
+        else:
+            lut = build_lut(q, snap.pq.codebook_dev(), self.metric)
+            top, idx = _search_pq(snap.codes, snap.tombs, snap.n, lut, allow_words,
+                                  min(k, snap.n, _PQ_SCAN_CHUNK), use_allow,
+                                  -(-snap.n // _PQ_SCAN_CHUNK))
+        return self._finalize_fused(translate_pack(top, idx, snap.slot_to_doc_dev), b, k)
+
     @staticmethod
-    def _finalize_fused(packed: torch.Tensor, b: int):
+    def _finalize_fused(packed: torch.Tensor, b: int, k: Optional[int] = None):
         """finalize() of a dispatch: the ONE blocking device->host transfer
         already carries final doc ids; the host half is dtype views."""
         def finalize():
             ids, dists = unpack_fused(packed.cpu().numpy())
+            if k is not None:
+                ids, dists = ids[:, :k], dists[:, :k]
             return ids[:b], dists[:b]
 
         return finalize
 
     def _dispatch_small_allow(self, snap: IndexSnapshot, q: torch.Tensor,
                               b: int, k: int, allow_list: AllowList):
-        """Gather tier (flatSearch over the allowList, flat_search.go:19)."""
+        """Gather tier (flatSearch over the allowList, flat_search.go:19).
+        Compressed, the allowed rows are uploaded from the host copy."""
         empty = (np.zeros((b, 0), np.uint64), np.zeros((b, 0), np.float32))
         slots = self._allow_slots(snap, allow_list)
         # nothing can match in THIS snapshot: no device work at all
         if slots.size == 0 or not np.any(~snap.host_tombs[slots]):
             return lambda: empty
         rows = torch.from_numpy(slots).to(self.device)
-        top, pos = _search_gathered(snap.store, q, rows, snap.tombs,
-                                    min(k, slots.size), self.metric)
+        if snap.compressed:
+            sub = torch.from_numpy(snap.host_vecs[slots]).to(self.device)
+        else:
+            sub = snap.store[rows]
+        top, pos = _score_rows(sub, q, rows, snap.tombs, min(k, slots.size), self.metric)
         slot_idx = torch.where(pos >= 0, rows[torch.clamp(pos, min=0)], -1)
         return self._finalize_fused(translate_pack(top, slot_idx, snap.slot_to_doc_dev), b)
 
@@ -1218,11 +1646,27 @@ class GpuVectorIndex(VectorIndex):
             limit *= 2
 
     def update_user_config(self, updated: vi.HnswUserConfig) -> None:
+        """Hot config update; pq.enabled turned on compresses now
+        (compress.go: "triggered by config update pq.enabled"). A failed
+        compression leaves the old config in place."""
         with self._lock:
             vi.validate_config_update(self.config, updated)
-            if updated.pq.enabled:
-                raise NotImplementedError(_NO_PQ)
+            was_enabled = self.config.pq.enabled
+            if (updated.pq.enabled and not was_enabled and self.dim is not None
+                    and updated.pq.segments > 0 and self.dim % updated.pq.segments != 0):
+                raise vi.ConfigValidationError(
+                    f"pq.segments ({updated.pq.segments}) must divide vector "
+                    f"dims ({self.dim})")
+            prev = self.config
             self.config = updated
+            if updated.pq.enabled and not was_enabled and not self.compressed:
+                try:
+                    self._flush_pending()
+                    if self.n > 0:
+                        self._compress_locked()
+                except Exception:
+                    self.config = prev
+                    raise
 
     def flush(self) -> None:
         with self._lock:
@@ -1240,7 +1684,7 @@ class GpuVectorIndex(VectorIndex):
                     pass
                 self._log = None
             self._store = self._sq_norms = self._tombs = self._s2d_dev = None
-            self._blk_cache = None
+            self._blk_cache.clear()
             self.dim = None
             self.capacity = 0
             self.n = 0
@@ -1250,11 +1694,22 @@ class GpuVectorIndex(VectorIndex):
             self._doc_to_slot.clear()
             self._pending.clear()
             self._pending_tombs.clear()
+            self.compressed = False
+            self._pq = self._pq4 = None
+            self._codes = self._recon_norms = None
+            self._rescore_dev = self._rescore_sq_norms = None
+            self._codes4 = self._recon_norms4 = None
+            self._host_vecs = None
             # slots are reassigned from 0 after a drop: filter caches keyed
             # on the old layout must not match the new one
             self._allow_token = object()
             self._staged_gen += 1
             self._publish_snapshot()
+            for path in (self._pq_path, self._pq4_path):
+                try:
+                    os.remove(path)
+                except FileNotFoundError:
+                    pass
 
     def shutdown(self) -> None:
         with self._lock:
@@ -1264,4 +1719,5 @@ class GpuVectorIndex(VectorIndex):
                 self._log.close()
 
     def list_files(self) -> list[str]:
-        return [self._log.path] if self._log is not None else []
+        files = [self._log.path] if self._log is not None else []
+        return files + [p for p in (self._pq_path, self._pq4_path) if os.path.exists(p)]

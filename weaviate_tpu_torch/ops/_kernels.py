@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each source under `weaviate_tpu_torch/csrc/` compiles with `nvcc` into a
-shared library with a plain C interface, loaded with ctypes (no PyTorch
+Each `.cu` source under `weaviate_tpu_torch/csrc/` (with the `.cuh`
+headers beside it) compiles with `nvcc` into a shared library with a
+plain C interface, loaded with ctypes (no PyTorch
 headers, so a build takes seconds). The build runs at first use, into
 `build/kernels/` at the root of the checkout, under a name keyed by the
 source's content and the flags, so an edited source rebuilds and an
@@ -49,7 +50,10 @@ def build(name: str) -> Path:
     return the library's path. Concurrent builds each compile into a
     private temporary file and rename it into place."""
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the key covers the shared headers too: an edit to the tile loop
+    # rebuilds every kernel that includes it
+    parts = [src.read_bytes()] + [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    key = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}_{key}.so"
     if out.exists():
         return out

@@ -16,10 +16,13 @@ Dead slots (tombstoned / beyond n / filtered out) carry bias=+inf.
 
 `group_min_scores` launches the hand-written Hopper kernel
 (`csrc/gmin_scan.cu`) for tensors on the card and runs its plain torch
-version, `group_min_scores_reference`, for tensors on the CPU. Around
+version, `group_min_scores_reference`, for tensors on the CPU. The store
+is f32 (the uncompressed index) or bf16 (the rescore copy of the
+PQ-compressed index); the kernel has one instantiation for each. Around
 it, plain torch ops do what the JAX package left to XLA: the group
 selection is an exact `torch.topk` (the TPU used approx_min_k at recall
-target 0.99), then a block gather and the exact f32 rescore.
+target 0.99), then a block gather and the exact f32 rescore, in query
+blocks that bound the gather (`topk.query_block`).
 """
 
 from __future__ import annotations
@@ -30,11 +33,11 @@ import torch
 
 from weaviate_tpu_torch.entities import vectorindex as vi
 from weaviate_tpu_torch.ops import _kernels
-from weaviate_tpu_torch.ops.topk import (bitmap_to_mask, rescore_distances,
-                                         smallest_k, translate_pack)
+from weaviate_tpu_torch.ops.topk import (bitmap_to_mask, query_block,
+                                         rescore_distances, smallest_k,
+                                         translate_pack)
 
-G = 16                 # group size (store slices)
-_RESCORE_BLOCK = 2048  # query rows per rescore step (bounds the gather)
+G = 16  # group size (store slices)
 
 # launches of the CUDA kernel by group_min_scores (never the CPU path):
 # a run reads it to show that its searches went through the kernel
@@ -47,10 +50,10 @@ def _gmin_lib():
     global _lib
     if _lib is None:
         lib = _kernels.load("gmin_scan")
-        vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.gmin_scan_launch.argtypes = [vp, vp, vp, vp, ll, ll, ll, ctypes.c_int,
-                                         ctypes.c_float, ctypes.c_int, vp]
-        lib.gmin_scan_launch.restype = ctypes.c_int
+        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        for fn in (lib.gmin_scan_launch, lib.gmin_scan_bf16_launch):
+            fn.argtypes = [vp, vp, vp, vp, ll, ll, ll, ci, ctypes.c_float, ci, ci, vp]
+            fn.restype = ctypes.c_int
         lib.gmin_scan_error_string.argtypes = [ctypes.c_int]
         lib.gmin_scan_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -81,9 +84,10 @@ def group_min_scores_reference(q: torch.Tensor, store3: torch.Tensor,
 
 def group_min_scores(q: torch.Tensor, store3: torch.Tensor, bias2: torch.Tensor,
                      alpha: float, *, active_g: int = G) -> torch.Tensor:
-    """[B, D] queries x [G, ncols, D] store view -> [B, ncols] group-min
-    scores over the first active_g slices (slots fill in order, so slices
-    past ceil(n/ncols) hold no live slot and are never read).
+    """[B, D] f32 queries x [G, ncols, D] f32 or bf16 store view ->
+    [B, ncols] group-min scores over the first active_g slices (slots fill
+    in order, so slices past ceil(n/ncols) hold no live slot and are never
+    read).
 
     On a CUDA tensor this launches the Hopper kernel and raises if the
     launch fails; on a CPU tensor it runs group_min_scores_reference."""
@@ -97,20 +101,26 @@ def group_min_scores(q: torch.Tensor, store3: torch.Tensor, bias2: torch.Tensor,
     if d2 != d or tuple(bias2.shape) != (g, ncols):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, store3 "
                          f"{tuple(store3.shape)}, bias2 {tuple(bias2.shape)}")
-    for name, t in (("q", q), ("store3", store3), ("bias2", bias2)):
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"{name} must be a contiguous float32 tensor on {q.device}")
+    for name, t, dtypes in (("q", q, (torch.float32,)),
+                            ("store3", store3, (torch.float32, torch.bfloat16)),
+                            ("bias2", bias2, (torch.float32,))):
+        if t.dtype not in dtypes or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be a contiguous {' or '.join(map(str, dtypes))} "
+                             f"tensor on {q.device}")
     if g > G:
         raise ValueError(f"the kernel takes at most {G} store slices, got {g}")
     out = torch.empty((b, ncols), dtype=torch.float32, device=q.device)
     if b == 0 or ncols == 0:
         return out
-    vec4 = d % 4 == 0 and q.data_ptr() % 16 == 0 and store3.data_ptr() % 16 == 0
+    qvec4 = d % 4 == 0 and q.data_ptr() % 16 == 0
     lib = _gmin_lib()
-    rc = lib.gmin_scan_launch(q.data_ptr(), store3.data_ptr(), bias2.data_ptr(),
-                              out.data_ptr(), b, ncols, d, _live_slices(active_g, g),
-                              float(alpha), int(vec4),
-                              torch.cuda.current_stream(q.device).cuda_stream)
+    if store3.dtype == torch.bfloat16:
+        launch, svec = lib.gmin_scan_bf16_launch, d % 8 == 0 and store3.data_ptr() % 16 == 0
+    else:
+        launch, svec = lib.gmin_scan_launch, d % 4 == 0 and store3.data_ptr() % 16 == 0
+    rc = launch(q.data_ptr(), store3.data_ptr(), bias2.data_ptr(), out.data_ptr(), b, ncols,
+                d, _live_slices(active_g, g), float(alpha), int(qvec4), int(svec),
+                torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("gmin_scan kernel launch failed: "
                            + lib.gmin_scan_error_string(rc).decode())
@@ -118,8 +128,24 @@ def group_min_scores(q: torch.Tensor, store3: torch.Tensor, bias2: torch.Tensor,
     return out
 
 
+def scan_bias(tombs, n, norms, allow_words, use_allow, metric) -> tuple[torch.Tensor, float]:
+    """-> ([G, ncols] bias, alpha) of the unified score over a [cap] slot
+    space: +inf for dead slots (tombstoned, at or past n, filtered out);
+    l2: the rows' squared norms, alpha -2; dot/cosine: 0, alpha -1 (rows
+    pre-normalized at insert for cosine)."""
+    cap = tombs.shape[0]
+    dead = tombs | (torch.arange(cap, device=tombs.device) >= n)
+    if use_allow:
+        dead = dead | ~bitmap_to_mask(allow_words, cap)
+    if metric == vi.DISTANCE_L2:
+        base, alpha = norms, -2.0
+    else:
+        base, alpha = torch.zeros(cap, dtype=torch.float32, device=tombs.device), -1.0
+    return torch.where(dead, float("inf"), base).view(G, cap // G), alpha
+
+
 def build_rescore_blocks(store: torch.Tensor) -> torch.Tensor:
-    """[cap, D] store -> [ncols, G*D] group-block layout: row `col` holds
+    """[cap, D] store (f32 or bf16) -> [ncols, G*D] group-block layout: row `col` holds
     the G strided members of group `col` (slots col, ncols+col, ...)
     contiguously, member-major, so the rescore gathers rg contiguous
     G*D-wide rows per query instead of rg*G scattered ones. The index
@@ -139,17 +165,7 @@ def gmin_topk(store, sq_norms, tombs, n, q, allow_words, use_allow, k, metric,
     dev = store.device
 
     # dead-slot bias: +inf survives the group min and never wins selection
-    slot = torch.arange(cap, device=dev)
-    dead = tombs | (slot >= n)
-    if use_allow:
-        dead = dead | ~bitmap_to_mask(allow_words, cap)
-    if metric == vi.DISTANCE_L2:
-        base, alpha = sq_norms, -2.0
-    else:  # dot / cosine (rows pre-normalized at insert for cosine)
-        base, alpha = torch.zeros(cap, dtype=torch.float32, device=dev), -1.0
-    bias = torch.where(dead, float("inf"), base)
-
-    bias2 = bias.view(G, ncols)
+    bias2, alpha = scan_bias(tombs, n, sq_norms, allow_words, use_allow, metric)
     gmin = group_min_scores(q, store.view(G, ncols, dim), bias2, alpha,
                             active_g=active_g)
     _, gidx = smallest_k(gmin, rg)
@@ -160,9 +176,10 @@ def gmin_topk(store, sq_norms, tombs, n, q, allow_words, use_allow, k, metric,
     offs = torch.arange(G, device=dev) * ncols
     bias_blk = bias2.T.contiguous()  # [ncols, G]
     tops, idxs = [], []
-    for s in range(0, b, _RESCORE_BLOCK):
-        q_ = q[s: s + _RESCORE_BLOCK]
-        gidx_ = gidx[s: s + _RESCORE_BLOCK]
+    step = query_block(rg * G, dim)
+    for s in range(0, b, step):
+        q_ = q[s: s + step]
+        gidx_ = gidx[s: s + step]
         nb = q_.shape[0]
         slots = (gidx_[:, :, None] + offs).reshape(nb, rg * G)
         if rescore_blk is not None:

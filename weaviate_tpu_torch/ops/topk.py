@@ -23,6 +23,19 @@ INF = float("inf")
 # on the host (the JAX package's all-ones sentinel words)
 MISSING_DOC = -1
 
+# the candidate rescores run in query blocks of at most this many rows,
+# fewer where a block's [rows, candidates, D] f32 gather would pass
+# _BLOCK_BYTES (the port's bound on one intermediate; the JAX programs
+# build the whole batch's gather at once)
+RESCORE_BLOCK = 2048
+_BLOCK_BYTES = 2 << 30
+
+
+def query_block(cands: int, dim: int) -> int:
+    """Query rows per rescore block for `cands` candidates of `dim` f32
+    values each."""
+    return max(1, min(RESCORE_BLOCK, _BLOCK_BYTES // max(cands * dim * 4, 1)))
+
 
 def smallest_k(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (values [B, k] ascending, positions [B, k] int64) of the k
