@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (weaviate_tpu_torch) on one NVIDIA card at
-the headline scale and at the PQ configuration's, and check it.
+the headline scale and at the PQ configuration's, run its stage profiler
+at full width, and check them.
 
     python3 chip_smoke.py [--seed 7]
 
@@ -27,6 +28,15 @@ B. BASELINE.json config 4, PQ-compressed HNSW on Sphere-1M's shape:
    For B2 and B3, 256 queries also run the same op on CPU copies of the
    snapshot's tensors (each wrapper then takes its plain version): the
    ids must overlap the card's at >= 0.99, distances agree to rtol 1e-4.
+On A, B1, B2 and B3 the sync batches run again with the fused-dispatch
+toggle off (the staged dispatch: slot indices fetched, translated on the
+host); their ids and distances must equal the fused ones bit for bit.
+
+C. the stage profiler (`weaviate_tpu_torch.tools.profile_gmin`) at its
+   default shape, N = 2^20 x 128 f32 gaussian, B = 16384: its component,
+   gather and loop (ITERS 8) modes in-process, after K4 (`nt_scores`) and
+   K5 (`c4_scores`, gc 2 and 4) are held against their plain versions and
+   against K1 on the same data (dead slots and 100 whole dead groups).
 
 Phases, in order; any failure raises and the script exits non-zero:
 1. card: name and power limit (nvidia-smi), compute capability 9.0;
@@ -35,12 +45,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    version at the main-path shapes (l2 and dot, dead slots and whole dead
    groups, on a 1024-query slice and the whole 16384-query batch), the
    main path with its launch counts (every count set to 0 just before the
-   tier's main path and read just after), a torch.profiler breakdown of
-   one sync batch;
+   tier's main path and read just after), the staged batches, a
+   torch.profiler breakdown of one sync batch;
 4. timings on the card, after the indexes are freed: each kernel, its
    plain version, a library yardstick and the bound, at the 1024-query
    slice and the 16384-query main shape;
-5. the card line, one JSON line of per-kernel numbers, the result line.
+5. C, after the B indexes are freed: the layout kernels' checks, the three
+   profiler modes with their launch counts (each count set to 0 just
+   before the modes run and read just after), the layout kernels' timings;
+6. the card line, one JSON line of per-kernel numbers, the result line.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
@@ -75,7 +88,8 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # kernel vs plain version: the same bf16 operands, summed in f32 in
 # another order (tests/test_torch_kernels_cuda.py states the same tolerance)
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-3
-KERNELS = ("gmin_scan", "pq_gmin")  # the CUDA sources
+KERNELS = ("gmin_scan", "pq_gmin", "gmin_layouts")  # the CUDA sources
+PROF_N, PROF_ITERS = 1 << 20, 8  # workload C: the profiler's default shape
 
 
 def log(msg: str) -> None:
@@ -222,11 +236,13 @@ def time_kernel(name, card, kernel, plain, library, q_all, bias2, ncols, ag, d, 
 def build_kernels() -> None:
     """Every CUDA source, one nvcc each, all started together; then load."""
     from weaviate_tpu_torch.ops import _kernels, gmin_scan, pq_gmin
+    from weaviate_tpu_torch.tools import profile_gmin
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as ex:
         list(ex.map(_kernels.build, KERNELS))
     gmin_scan._gmin_lib()
     pq_gmin.codes_lib()
+    profile_gmin._layouts_lib()
     log(f"build {', '.join(KERNELS)}: {time.perf_counter() - t0:.2f} s in parallel")
     for name in KERNELS:
         secs, out = _kernels.build_info.get(name, (0.0, "(already built)"))
@@ -301,6 +317,7 @@ def headline(dev, card, seed) -> dict:
             raise AssertionError(f"{async_launches} kernel launches for 8 async batches")
         if not (np.array_equal(results[0][0], ids0) and np.array_equal(results[0][1], d0)):
             raise AssertionError("the async result differs from the sync result")
+        staged_p50 = staged_batches(idx, batches[0], 4, ids0, d0, "A")
 
         gmin_scan.launches = 0
         r_f, r_s = filtered_checks(idx, batches[0], x_dev, f_rows, rng, dev, "l2", Bitmap)
@@ -334,8 +351,8 @@ def headline(dev, card, seed) -> dict:
                       ncols, ag, DIM, 4.0 * DIM, 0.0, f"bf16 matmul [Bx{DIM}]x[{DIM}x{capacity}]")
     del store_bf
     log(f"[{card}] A end to end, {BATCH}-query batches, k={K}, n={N}: sync p50 "
-        f"{p50 * 1e3:.1f} ms, pipelined {qps:.0f} QPS, ingest {N / ingest_s:.0f} rows/s, "
-        f"restart {restart_s:.2f} s")
+        f"{p50 * 1e3:.1f} ms (staged {staged_p50 * 1e3:.1f} ms), pipelined {qps:.0f} QPS, "
+        f"ingest {N / ingest_s:.0f} rows/s, restart {restart_s:.2f} s")
     return {"name": "gmin_scan", "route": "cuda",
             "source": "weaviate_tpu_torch/csrc/gmin_scan.cu",
             "replaces": "weaviate_tpu/ops/gmin_scan.py:159",
@@ -350,6 +367,24 @@ def sync_batches(idx, q, reps):
         ids, d = idx.search_by_vectors(q, K)
         lat.append(time.perf_counter() - t0)
     return lat, float(np.median(lat[1:])), ids, d
+
+
+def staged_batches(idx, q, reps, ids0, d0, label) -> float:
+    """The sync batches again with the fused-dispatch toggle off (the
+    staged dispatch); their answer must equal the fused one (ids0, d0) bit
+    for bit. -> the staged p50 in seconds."""
+    from weaviate_tpu_torch.index import gpu
+    token = gpu.set_fused_enabled(False)
+    try:
+        lat, p50, ids, d = sync_batches(idx, q, reps)
+    finally:
+        gpu.unset_fused_enabled(token)
+    if ids.dtype != ids0.dtype or not (np.array_equal(ids, ids0)
+                                       and np.array_equal(d.view(np.int32), d0.view(np.int32))):
+        raise AssertionError(f"{label}: the staged answer differs from the fused one")
+    log(f"{label} staged (fused dispatch off): {['%.1f ms' % (t * 1e3) for t in lat]}, "
+        f"ids and distances bit-identical to the fused batch")
+    return p50
 
 
 def async_batches(idx, batches, n_pipe):
@@ -510,6 +545,7 @@ def pq_workload(dev, card, seed):
             raise AssertionError(f"B1 recall@10 {recall:.4f} < {RECALL_BAR} or launches {launches}")
         if not (np.array_equal(results[0][0], ids0) and np.array_equal(results[0][1], d0)):
             raise AssertionError("B1: the async result differs from the sync result")
+        staged_p50 = staged_batches(idx, batches[0], 4, ids0, d0, "B1")
         ids_d, d_d = delete_check(idx, ids0, batches[0], N, "B1")
         idx.shutdown()
         del idx, snap
@@ -523,7 +559,8 @@ def pq_workload(dev, card, seed):
         log(f"B1 restart: replayed vector.log, re-entered compressed mode from pq.npz and "
             f"answered the same in {restart_s:.2f} s")
         profile_sync_batch(idx, batches[0], card, "B1")
-        log(f"[{card}] B1 end to end: recall@10 {recall:.4f}, sync p50 {p50 * 1e3:.1f} ms, "
+        log(f"[{card}] B1 end to end: recall@10 {recall:.4f}, sync p50 {p50 * 1e3:.1f} ms "
+            f"(staged {staged_p50 * 1e3:.1f} ms), "
             f"pipelined {qps:.0f} QPS, import {N / ingest_s:.0f} rows/s, compress "
             f"{compress_s:.2f} s, restart {restart_s:.2f} s")
         keep["k1"] = (store3.clone(), biases[0][2], ncols, ag)
@@ -572,6 +609,7 @@ def pq_workload(dev, card, seed):
             f"exact f32; async {qps:.0f} QPS; K2 launches {launches}")
         if r_adc < RECALL_BAR or launches < 7:
             raise AssertionError(f"B2 ADC recall {r_adc:.4f} < {RECALL_BAR} or launches {launches}")
+        staged_p50 = staged_batches(idx, batches[0], 3, ids0, d0, "B2")
 
         q_cpu = batches[0][cpu_rows]
         card_ids, card_d = idx.search_by_vectors(q_cpu, K)
@@ -585,8 +623,8 @@ def pq_workload(dev, card, seed):
             build_codes_blocks(codes_c)))
         profile_sync_batch(idx, batches[0], card, "B2")
         log(f"[{card}] B2 end to end: ADC recall@10 {r_adc:.4f}, exact recall@10 {r_exact:.4f}, "
-            f"sync p50 {p50 * 1e3:.1f} ms, pipelined {qps:.0f} QPS, import incl. compress "
-            f"{N / ingest_s:.0f} rows/s")
+            f"sync p50 {p50 * 1e3:.1f} ms (staged {staged_p50 * 1e3:.1f} ms), pipelined "
+            f"{qps:.0f} QPS, import incl. compress {N / ingest_s:.0f} rows/s")
         keep["k2"] = (codes3.clone(), cb.clone(), biases[0][2], ncols, ag)
         out["k2"] = dict(launches=launches, max_abs_err=err)
         idx.shutdown()
@@ -632,6 +670,7 @@ def pq_workload(dev, card, seed):
             f"{float(np.max(np.abs(d0[gt_rows] - f32_want) / np.abs(f32_want))):.2e}")
         if launches < 7:
             raise AssertionError(f"B3: {launches} K3 launches for 7 batches")
+        staged_p50 = staged_batches(idx, batches[0], 3, ids0, d0, "B3")
 
         q_cpu = batches[0][cpu_rows]
         card_ids, card_d = idx.search_by_vectors(q_cpu, K)
@@ -645,8 +684,9 @@ def pq_workload(dev, card, seed):
             snap.slot_to_doc_dev.cpu(), False, K, "dot", rg4, rc, ag, True, None,
             build_codes_blocks(codes8_c)))
         profile_sync_batch(idx, batches[0], card, "B3")
-        log(f"[{card}] B3 end to end: exact recall@10 {r_exact:.4f}, sync p50 {p50 * 1e3:.1f} ms, "
-            f"pipelined {qps:.0f} QPS, import incl. compress {N / ingest_s:.0f} rows/s")
+        log(f"[{card}] B3 end to end: exact recall@10 {r_exact:.4f}, sync p50 {p50 * 1e3:.1f} ms "
+            f"(staged {staged_p50 * 1e3:.1f} ms), pipelined {qps:.0f} QPS, import incl. compress "
+            f"{N / ingest_s:.0f} rows/s")
         keep["k3"] = (codes3p.clone(), cb4.clone(), biases[0][2], ncols, ag)
         out["k3"] = dict(launches=launches, max_abs_err=err)
         idx.shutdown()
@@ -696,6 +736,106 @@ def pq_workload(dev, card, seed):
     ]
 
 
+# -- workload C: the stage profiler at full width --------------------------------
+
+def profiler_phase(dev, card, seed) -> list[dict]:
+    """K4 and K5 against their plain versions and K1 at the profiler's
+    default shape, the profiler's three modes with their launch counts, and
+    the layout kernels' timings -> their rows of the kernels line."""
+    from weaviate_tpu_torch.ops import gmin_scan
+    from weaviate_tpu_torch.tools import profile_gmin as pg
+
+    G = gmin_scan.G
+    t0 = time.perf_counter()
+    d = pg.make_data(PROF_N, BATCH, dev, torch.Generator(device=dev).manual_seed(seed + 2))
+    torch.cuda.synchronize()
+    log(f"C data: {PROF_N} x {pg.D} gaussian store, {BATCH} queries on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ncols = d.ncols
+    store3t = pg.transpose_store(d.store3)
+    dead = dead_mask(PROF_N, ncols, PROF_N, np.random.default_rng(seed + 2), dev)
+    biases = [(m, a, torch.where(dead, float("inf"), base).view(G, ncols))
+              for m, a, base in (("l2", -2.0, d.norms), ("dot", -1.0, torch.zeros_like(d.norms)))]
+    del dead
+    # kernel name -> (wrapper, plain version, layout of (store3t, bias2))
+    kernels = {"nt_scores": (pg.nt_scores, pg.nt_scores_reference,
+                             lambda b2: (store3t, b2))}
+    for gc in (2, 4):
+        kernels[f"c4_scores_gc{gc}"] = (
+            lambda q, s4, b4, a, gc=gc: pg.c4_scores(q, s4, b4, a, pg.SCG, gc),
+            lambda q, s4, b4, a, gc=gc: pg.c4_scores_reference(q, s4, b4, a, pg.SCG, gc),
+            lambda b2, gc=gc: pg.interleave(store3t, b2, gc, pg.SCG))
+    max_err = dict.fromkeys(kernels, 0.0)
+    for b in (SLICE, BATCH):
+        q_b = d.q[:b]
+        for metric, alpha, bias2 in biases:
+            k1 = gmin_scan.group_min_scores(q_b, d.store3, bias2, alpha)
+            fin = torch.isfinite(k1)
+            for name, (kernel, plain, layout) in kernels.items():
+                x, bias = layout(bias2)
+                got = kernel(q_b, x, bias, alpha)
+                want = plain(q_b, x, bias, alpha)
+                torch.cuda.synchronize()
+                for ref_name, ref in (("plain", want), ("K1", k1)):
+                    if not torch.equal(torch.isinf(got), torch.isinf(ref)):
+                        raise AssertionError(f"{name} {metric} B={b}: the dead groups differ "
+                                             f"from {ref_name}'s")
+                    torch.testing.assert_close(got, ref, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+                err = float(torch.where(fin, got - want, 0.0).abs().max())
+                err_k1 = float(torch.where(fin, got - k1, 0.0).abs().max())
+                max_err[name] = max(max_err[name], err)
+                log(f"{name} vs plain [{b} x {ncols}, 16 groups] {metric}: max abs err "
+                    f"{err:.3e}, vs K1 {err_k1:.3e} (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}); "
+                    f"+inf groups per query {int((~fin[0]).sum())}")
+                del got, want, x, bias
+                torch.cuda.empty_cache()
+            del k1, fin
+    del biases
+    torch.cuda.empty_cache()
+
+    # the profiler's three modes, each count set to 0 just before them
+    gmin_scan.launches = 0
+    pg.nt_launches = 0
+    pg.c4_launches.clear()
+    t0 = time.perf_counter()
+    stages = {}
+    for mode in ("component", "gather", "loop"):
+        log(f"C profile_gmin --mode {mode} N={PROF_N} B={BATCH} ITERS={PROF_ITERS}")
+        stages[mode] = pg.profile(mode, d, PROF_ITERS)
+        torch.cuda.empty_cache()
+    launches = {"nt_scores": pg.nt_launches, "c4_scores_gc2": pg.c4_launches.get(2, 0),
+                "c4_scores_gc4": pg.c4_launches.get(4, 0)}
+    log(json.dumps({"profile_gmin_ms": stages, "card": card}))
+    log(f"C profiler modes: {time.perf_counter() - t0:.1f} s; launches {launches}, "
+        f"K1 {gmin_scan.launches}")
+    for name, n in launches.items():
+        if n != 1 + pg.REPS:
+            raise AssertionError(f"{name}: {n} launches in the profiler's modes, want "
+                                 f"{1 + pg.REPS} (warm-up + REPS)")
+
+    # timings, l2, beside K1's library yardstick and the bound
+    bias2 = d.bias2
+    store_bf = d.store.bfloat16()
+    rows = []
+    for name, (kernel, plain, layout) in kernels.items():
+        x, bias = layout(bias2)
+        row = time_kernel(
+            name, card, lambda q, b, a, g: kernel(q, x, b, a),
+            lambda q, b, a, g: plain(q, x, b, a),
+            lambda q: torch.matmul(q.bfloat16(), store_bf.T), d.q, bias, ncols, G, pg.D,
+            4.0 * pg.D, 0.0, f"bf16 matmul [Bx{pg.D}]x[{pg.D}x{PROF_N}]")
+        del x, bias
+        torch.cuda.empty_cache()
+        line = 118 if name == "nt_scores" else 147
+        rows.append({"name": name, "route": "cuda",
+                     "source": "weaviate_tpu_torch/csrc/gmin_layouts.cu",
+                     "replaces": f"tools/profile_gmin.py:{line}",
+                     "launches": launches[name], "max_abs_err": max_err[name], **row})
+    del store_bf, store3t, d
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=7)
@@ -723,17 +863,20 @@ def main() -> int:
     # 2. build
     build_kernels()
 
-    # 3-4. the workloads
+    # 3-5. the workloads
     t0 = time.perf_counter()
     k1_f32 = headline(dev, card, args.seed)
     log(f"workload A: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     pq_rows = pq_workload(dev, card, args.seed)
-    log(f"workload B: {time.perf_counter() - t0:.1f} s; total {time.perf_counter() - t_start:.1f} s")
+    log(f"workload B: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    layout_rows = profiler_phase(dev, card, args.seed)
+    log(f"workload C: {time.perf_counter() - t0:.1f} s; total {time.perf_counter() - t_start:.1f} s")
 
-    # 5. result lines
+    # 6. result lines
     log(card)
-    print(json.dumps({"kernels": [k1_f32, *pq_rows]}), flush=True)
+    print(json.dumps({"kernels": [k1_f32, *pq_rows, *layout_rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

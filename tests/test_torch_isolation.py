@@ -35,7 +35,7 @@ def test_import_loads_no_jax_or_reference_module():
     code = ("import sys\n"
             "before = set(sys.modules)\n"
             "import weaviate_tpu_torch.index, weaviate_tpu_torch.index.gpu, "
-            "weaviate_tpu_torch.state\n"
+            "weaviate_tpu_torch.state, weaviate_tpu_torch.tools.profile_gmin\n"
             "bad = sorted(m for m in set(sys.modules) - before if m.startswith('jax') "
             "or m.split('.')[0] == 'weaviate_tpu')\n"
             "print(','.join(bad))")

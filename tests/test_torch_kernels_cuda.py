@@ -13,9 +13,10 @@ import pytest
 import torch
 
 from weaviate_tpu_torch.entities import vectorindex as vi
-from weaviate_tpu_torch.index import new_vector_index
+from weaviate_tpu_torch.index import gpu, new_vector_index
 from weaviate_tpu_torch.ops import gmin_scan, pq4, pq_gmin
 from weaviate_tpu_torch.storage.bitmap import Bitmap
+from weaviate_tpu_torch.tools import profile_gmin
 
 
 @pytest.fixture
@@ -174,3 +175,75 @@ def test_index_on_card_matches_cpu(card, tmp_path, metric):
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
     assert gmin_scan.launches == before + 2  # B=16 unfiltered and masked
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ncols,d,g", [(16, 1024, 32, 16), (77, 1000, 129, 16),
+                                         (5, 130, 30, 3), (300, 4096, 128, 16)])
+@pytest.mark.parametrize("alpha", [-2.0, -1.0])
+def test_nt_kernel_matches_plain_version(card, b, ncols, d, g, alpha):
+    """K4 over a transposed store: ragged B and ncols, the scalar staging
+    path (ncols % 4 != 0), D off 16 and over one staged depth. Same
+    tolerance as K1, and against K1 on the untransposed store."""
+    rng = np.random.default_rng(b + ncols)
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(card)
+    x = torch.from_numpy(rng.standard_normal((g, ncols, d)).astype(np.float32)).to(card)
+    bias = _dead_bias(rng, ncols, card)[:g].contiguous()
+    xt = profile_gmin.transpose_store(x)
+    before = profile_gmin.nt_launches
+    got = profile_gmin.nt_scores(q, xt, bias, alpha)
+    torch.cuda.synchronize()
+    assert profile_gmin.nt_launches == before + 1
+    want = profile_gmin.nt_scores_reference(q, xt, bias, alpha)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    k1 = gmin_scan.group_min_scores(q, x, bias, alpha, active_g=g)
+    torch.testing.assert_close(got, k1, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ncols,d,scg", [(16, 1024, 32, 64), (77, 960, 129, 64),
+                                           (5, 320, 30, 64), (300, 4096, 128, 128),
+                                           (33, 1024, 64, 256), (9, 1536, 136, 256)])
+@pytest.mark.parametrize("gc", [2, 4])
+def test_c4_kernel_matches_plain_version(card, b, ncols, d, scg, gc):
+    """K5 over the interleaved store: scg 64 (ncols ragged against the
+    128-column tile), 128 and 256, gc 2 and 4, ragged B, D off 16 and over
+    one staged depth. Same tolerance as K1, and against K1."""
+    rng = np.random.default_rng(b * gc + scg)
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(card)
+    x = torch.from_numpy(rng.standard_normal((16, ncols, d)).astype(np.float32)).to(card)
+    bias = _dead_bias(rng, ncols, card)
+    s4, b4 = profile_gmin.interleave(profile_gmin.transpose_store(x), bias, gc, scg)
+    before = profile_gmin.c4_launches.get(gc, 0)
+    got = profile_gmin.c4_scores(q, s4, b4, -2.0, scg, gc)
+    torch.cuda.synchronize()
+    assert profile_gmin.c4_launches[gc] == before + 1
+    want = profile_gmin.c4_scores_reference(q, s4, b4, -2.0, scg, gc)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    k1 = gmin_scan.group_min_scores(q, x, bias, -2.0)
+    torch.testing.assert_close(got, k1, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_staged_dispatch_on_card_equals_fused(card, tmp_path):
+    """The toggle off on the card: the same ids and distances, bit for
+    bit, on the kernel tier, the chunked scan and the gather tier."""
+    rng = np.random.default_rng(2)
+    vecs = rng.standard_normal((3000, 32)).astype(np.float32)
+    q = rng.standard_normal((16, 32)).astype(np.float32)
+    cfg = vi.parse_and_validate_config("hnsw_tpu", {"distance": "l2-squared",
+                                                    "flatSearchCutoff": 500})
+    idx = new_vector_index(cfg, str(tmp_path))
+    idx.add_batch(np.arange(3000), vecs)
+    try:
+        for b, allow in ((16, None), (1, None), (16, Bitmap(np.arange(0, 3000, 11)))):
+            gpu.set_fused_enabled(True)
+            fused = idx.search_by_vectors(q[:b], 10, allow_list=allow)
+            gpu.set_fused_enabled(False)
+            staged = idx.search_by_vectors(q[:b], 10, allow_list=allow)
+            np.testing.assert_array_equal(staged[0], fused[0])
+            np.testing.assert_array_equal(staged[1], fused[1])
+    finally:
+        gpu.set_fused_enabled(None)

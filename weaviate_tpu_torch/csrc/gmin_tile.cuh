@@ -1,15 +1,27 @@
 // The group-min tile loop shared by the port's scan kernels (K1 in
-// gmin_scan.cu, K2 and K3 in pq_gmin.cu). Each kernel differs only in how
-// it stages the store operand: K1 reads an f32 or bf16 store, K2 and K3
-// rebuild the rows from PQ codes and a bf16 codebook. The staging is a
+// gmin_scan.cu, K2 and K3 in pq_gmin.cu, K4 and K5 in gmin_layouts.cu).
+// Each kernel differs only in how it stages the store operand: K1 reads an
+// f32 or bf16 store, K2 and K3 rebuild the rows from PQ codes and a bf16
+// codebook, K4 and K5 read a store laid out depth-major. The staging is a
 // `Stager` object with one method,
 //
 //   __device__ void stage(__nv_bfloat16* dst, int g, int64_t c0, int64_t D,
 //                         int64_t d0, int dk, int dkp) const;
 //
-// which fills dst [BC rows x LDS pitch] with bf16 values of store slice g,
-// columns c0 .. c0+BC, depth d0 .. d0+dkp, and zeros past ncols or past
-// the live depth dk (zeros add nothing to a dot product).
+// which fills dst with bf16 values of store slice g, columns c0 .. c0+BC,
+// depth d0 .. d0+dkp, and zeros past ncols or past the live depth dk (zeros
+// add nothing to a dot product). The loop's compile-time layout XT says how
+// dst is laid out: false (K1-K3), [BC columns x LDS pitch], one column's
+// depth run per row, read as a col_major B operand; true (K4, K5), [DK
+// depth x LDX pitch], one depth's run of columns per row, read as a
+// row_major B operand (the layout of a [D, ncols] store, so a stager copies
+// contiguous runs and transposes nothing).
+//
+// The bias of the loop's slice g and output column col is read at
+// bias_offset(stager, g, col, ncols): row g of a [ag, ncols] bias by
+// default. A stager whose columns lie elsewhere (K5's interleave) declares
+// its own bias_offset overload beside it, found by argument-dependent
+// lookup.
 //
 // What the loop computes, for queries q [B, D] f32 and a bias [16, ncols]
 // f32 (slot g*ncols + c is member g of group c):
@@ -41,6 +53,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace gmin {
 
 using namespace nvcuda;
@@ -57,6 +71,7 @@ constexpr int FQ = WQ / 16;
 constexpr int FC = WC / 16;
 constexpr int THREADS = 32 * WARPS_Q * WARPS_C;
 constexpr int LDS = DK + 8;       // bf16 row pitch of the operand tiles (wmma: multiple of 8)
+constexpr int LDX = BC + 8;       // bf16 row pitch of a depth-major operand tile (XT)
 constexpr int LDB = BC + 4;       // f32 row pitch of the bias / output tiles (wmma: multiple of 4)
 
 constexpr size_t Q_TILE_BYTES = size_t(BQ) * LDS * sizeof(__nv_bfloat16);
@@ -67,6 +82,9 @@ static_assert(size_t(BQ) * LDB * sizeof(float) <= Q_TILE_BYTES + X_TILE_BYTES,
               "the output tile reuses the operand tiles' shared memory");
 static_assert(Q_TILE_BYTES % 128 == 0 && X_TILE_BYTES % 128 == 0, "tile alignment");
 static_assert((LDS * sizeof(__nv_bfloat16)) % 16 == 0, "16-byte aligned operand rows");
+static_assert(size_t(DK) * LDX * sizeof(__nv_bfloat16) <= X_TILE_BYTES,
+              "a depth-major store tile fits the store tile's shared memory");
+static_assert((LDX * sizeof(__nv_bfloat16)) % 16 == 0, "16-byte aligned depth-major rows");
 
 __device__ __forceinline__ float f32_inf() { return __int_as_float(0x7f800000); }
 
@@ -101,6 +119,11 @@ __device__ __forceinline__ void stage_f32(__nv_bfloat16* dst, const float* __res
 }
 
 template <class Stager>
+__device__ __forceinline__ int64_t bias_offset(const Stager&, int g, int64_t col, int64_t ncols) {
+  return int64_t(g) * ncols + col;
+}
+
+template <class Stager, bool XT = false>
 __device__ __forceinline__ void gmin_tile(const Stager& xs, const float* __restrict__ q,
                                           const float* __restrict__ bias, float* __restrict__ out,
                                           int64_t B, int64_t ncols, int64_t D, int ag, float alpha,
@@ -141,7 +164,7 @@ __device__ __forceinline__ void gmin_tile(const Stager& xs, const float* __restr
       if (s == 0) {
         for (int c = threadIdx.x; c < BC; c += THREADS) {
           const int64_t col = c0 + c;
-          const float v = col < ncols ? bias[int64_t(g) * ncols + col] : f32_inf();
+          const float v = col < ncols ? bias[bias_offset(xs, g, col, ncols)] : f32_inf();
 #pragma unroll
           for (int r = 0; r < 16; ++r) sb[r * LDB + c] = v;
         }
@@ -149,13 +172,19 @@ __device__ __forceinline__ void gmin_tile(const Stager& xs, const float* __restr
       __syncthreads();
       for (int kk = 0; kk < dkp; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[FQ];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bm[FC];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       std::conditional_t<XT, wmma::row_major, wmma::col_major>>
+            bm[FC];
 #pragma unroll
         for (int i = 0; i < FQ; ++i)
           wmma::load_matrix_sync(a[i], sq + (wq * WQ + i * 16) * LDS + kk, LDS);
 #pragma unroll
-        for (int j = 0; j < FC; ++j)  // col-major B = the row-major x tile, transposed
-          wmma::load_matrix_sync(bm[j], sx + (wc * WC + j * 16) * LDS + kk, LDS);
+        for (int j = 0; j < FC; ++j) {
+          if constexpr (XT)  // row-major B = the depth-major x tile as it is
+            wmma::load_matrix_sync(bm[j], sx + kk * LDX + wc * WC + j * 16, LDX);
+          else  // col-major B = the column-major x tile, transposed
+            wmma::load_matrix_sync(bm[j], sx + (wc * WC + j * 16) * LDS + kk, LDS);
+        }
 #pragma unroll
         for (int i = 0; i < FQ; ++i)
 #pragma unroll

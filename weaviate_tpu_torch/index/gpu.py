@@ -16,8 +16,12 @@ batches:
   metrics run the chunked exact scan (`_search_full`);
 - allowLists below `flatSearchCutoff` take the gather tier: only the
   allowed rows are scored (flat_search.go:19 semantics);
-- each dispatch ends in ONE device->host transfer that already carries
-  final doc ids (ops/topk.translate_pack);
+- each dispatch ends in ONE device->host transfer. With the fused-dispatch
+  toggle on (the default) it already carries final doc ids
+  (ops/topk.translate_pack); off (`FUSED_DISPATCH_ENABLED=false` or
+  `set_fused_enabled(False)`, the staged dispatch), it carries slot
+  indices (ops/topk.pack_topk) that finalize translates on the host
+  through the snapshot's slot->doc mirror;
 - reads are snapshot-isolated: writers publish an immutable IndexSnapshot
   with one reference swap, readers grab it lock-free and run the whole
   two-phase dispatch (enqueue, then finalize) on it.
@@ -79,15 +83,16 @@ import torch
 from weaviate_tpu_torch.compress.pq import (ProductQuantizer, build_lut, lut_scan_block,
                                             pack_codes4)
 from weaviate_tpu_torch.config.config import (PQ4_FUNNEL_C_BUCKETS,
-                                              PQ4_FUNNEL_RESCORE_BUCKETS, RESCORE_R_BUCKETS)
+                                              PQ4_FUNNEL_RESCORE_BUCKETS, RESCORE_R_BUCKETS,
+                                              _bool)
 from weaviate_tpu_torch.device import resolve_device
 from weaviate_tpu_torch.entities import vectorindex as vi
 from weaviate_tpu_torch.index.interface import AllowList, VectorIndex
 from weaviate_tpu_torch.ops import gmin_scan, pq4, pq_gmin
 from weaviate_tpu_torch.ops.distances import DISTANCE_FNS
-from weaviate_tpu_torch.ops.topk import (bitmap_to_mask, merge_top_k,
+from weaviate_tpu_torch.ops.topk import (bitmap_to_mask, merge_top_k, pack_topk,
                                          rescore_distances, smallest_k,
-                                         translate_pack, unpack_fused)
+                                         translate_pack, unpack_fused, unpack_topk)
 from weaviate_tpu_torch.storage.bitmap import (Bitmap, allowed_mask,
                                                pack_allow_words)
 
@@ -113,12 +118,53 @@ _PQ_SCAN_CHUNK = 32768
 
 _NO_IVF = "the IVF scan plane is not ported yet: ROADMAP queue 1 item 9"
 
+# -- fused-dispatch toggle ----------------------------------------------------
+# On (the default), every dispatch translates slots to doc ids on the card
+# and finalize() only reads the fetched buffer. Off, the staged dispatch:
+# each tier returns the packed [B, 2k] slots and finalize() translates them
+# on the host through the snapshot's slot->doc mirror (the JAX package's
+# A/B control, `index/tpu.py:117-165`).
+_fused_override: Optional[bool] = None
+_fused_env: Optional[bool] = None
+_fused_token: Optional[object] = None
+
+
+def set_fused_enabled(on: Optional[bool]) -> Optional[object]:
+    """Override the fused-dispatch toggle process-wide. None reverts to the
+    FUSED_DISPATCH_ENABLED environment default, re-read fresh. Returns a
+    token naming THIS override: unset_fused_enabled(token) reverts it only
+    while it is still the current one."""
+    global _fused_override, _fused_token, _fused_env
+    _fused_override = on
+    _fused_token = object() if on is not None else None
+    if on is None:
+        _fused_env = None  # revert means re-read the environment
+    return _fused_token
+
+
+def unset_fused_enabled(token: Optional[object]) -> None:
+    """Revert set_fused_enabled's override iff `token` is the current one
+    (a newer override wins); a None token is a no-op."""
+    global _fused_override, _fused_token, _fused_env
+    if token is not None and token is _fused_token:
+        _fused_override = None
+        _fused_token = None
+        _fused_env = None
+
+
+def fused_dispatch_enabled() -> bool:
+    global _fused_env
+    if _fused_override is not None:
+        return _fused_override
+    if _fused_env is None:
+        _fused_env = _bool(os.environ, "FUSED_DISPATCH_ENABLED", True)
+    return _fused_env
+
 
 def _ivf_requested(n: int) -> bool:
     """True when IVF_ENABLED asks for the IVF plane and the shard is large
     enough that the JAX package would route this dispatch to it."""
-    on = os.environ.get("IVF_ENABLED", "").strip().lower() in ("true", "enabled", "on", "1")
-    return on and n >= int(os.environ.get("IVF_MIN_N", "") or 20000)
+    return _bool(os.environ, "IVF_ENABLED") and n >= int(os.environ.get("IVF_MIN_N", "") or 20000)
 
 
 def _bucket_b(b: int) -> int:
@@ -146,6 +192,13 @@ def _valid_slots(tombs, n, base, chunk, allow_words, use_allow):
     if use_allow:
         valid = valid & bitmap_to_mask(allow_words[base // 32: (base + chunk) // 32], chunk)
     return valid
+
+
+def _pack(top: torch.Tensor, idx: torch.Tensor, s2d: Optional[torch.Tensor]) -> torch.Tensor:
+    """A tier's ([B, k] dists, [B, k] slot idx) -> its one fetchable
+    buffer: translated on the device when s2d is the doc-id column (the
+    fused layout), the staged [B, 2k] slots when it is None."""
+    return translate_pack(top, idx, s2d) if s2d is not None else pack_topk(top, idx)
 
 
 def _search_full(store, sq_norms, tombs, n, q, allow_words, k, metric, use_allow,
@@ -1459,20 +1512,24 @@ class GpuVectorIndex(VectorIndex):
             raise ValueError(f"dim mismatch: index has {snap.dim}, got {q_host.shape[1]}")
         q = torch.from_numpy(q_host).to(self.device)
         k_eff = min(k, snap.live)
+        # the fused dispatch translates on the card from the snapshot's
+        # doc-id column; the staged one (s2d None) on the host
+        s2d = snap.slot_to_doc_dev if fused_dispatch_enabled() else None
         if allow_list is not None and len(allow_list) < self.config.flat_search_cutoff:
-            return self._dispatch_small_allow(snap, q, b, k_eff, allow_list)
+            return self._dispatch_small_allow(snap, q, b, k_eff, allow_list, s2d)
         if snap.compressed:
-            return self._dispatch_full_pq(snap, q, b, k_eff, allow_list)
+            return self._dispatch_full_pq(snap, q, b, k_eff, allow_list, s2d)
         allow_words = (self._allow_words(snap, allow_list)
                        if allow_list is not None else None)
-        return self._dispatch_scan(snap, q, b, k_eff, allow_words)
+        return self._dispatch_scan(snap, q, b, k_eff, allow_words, s2d)
 
     def _dispatch_scan(self, snap: IndexSnapshot, q: torch.Tensor, b: int,
-                       k_eff: int, allow_words, store=None, sq_norms=None):
+                       k_eff: int, allow_words, s2d, store=None, sq_norms=None):
         """Full-store scan over `store`: the f32 store uncompressed, the
         bf16 rescore copy under PQ with rescore. The group-min fast scan
         when `_use_gmin` allows it, the chunked exact scan otherwise; the
-        slot->doc translation runs on the device in both."""
+        slot->doc translation runs on the device in both when s2d is the
+        snapshot's doc-id column, on the host when it is None."""
         kk = min(max(k_eff, 1), snap.n)
         use_allow = allow_words is not None
         if store is None:
@@ -1481,21 +1538,23 @@ class GpuVectorIndex(VectorIndex):
             name = "rescore"
         if self._use_gmin(snap, q.shape[0], kk):
             ncols = snap.capacity // gmin_scan.G
-            packed = gmin_scan.search_gmin_fused(
-                store, sq_norms, snap.tombs, snap.n, q, allow_words,
-                snap.slot_to_doc_dev, use_allow, kk, self.metric,
-                self._gmin_rg(kk, snap.capacity),
-                active_g=-(-snap.n // ncols),  # live store slices only
-                rescore_blk=self._gen_blocks(name, store, snap.store_gen,
-                                             gmin_scan.build_rescore_blocks))
+            args = (store, sq_norms, snap.tombs, snap.n, q, allow_words)
+            statics = (use_allow, kk, self.metric, self._gmin_rg(kk, snap.capacity),
+                       -(-snap.n // ncols),  # live store slices only
+                       self._gen_blocks(name, store, snap.store_gen,
+                                        gmin_scan.build_rescore_blocks))
+            if s2d is not None:
+                packed = gmin_scan.search_gmin_fused(*args, s2d, *statics)
+            else:
+                packed = gmin_scan.search_gmin(*args, *statics)
         else:
             top, idx = _search_full(
                 store, sq_norms if self.metric == vi.DISTANCE_L2 else None,
                 snap.tombs, snap.n, q, allow_words, kk, self.metric, use_allow,
                 -(-snap.n // _SCAN_CHUNK),
                 self._rescore_r(kk, snap.n))
-            packed = translate_pack(top, idx, snap.slot_to_doc_dev)
-        return self._finalize_fused(packed, b)
+            packed = _pack(top, idx, s2d)
+        return self._finalize(packed, snap, s2d, b)
 
     def _funnel_budgets(self, k: int, n: int) -> tuple[int, int]:
         """(rg4 stage-1 groups, rc stage-2 survivors) of a funnel whose scan
@@ -1505,10 +1564,10 @@ class GpuVectorIndex(VectorIndex):
         return pq4.plan_funnel(k, n, PQ4_FUNNEL_C_BUCKETS[-1], PQ4_FUNNEL_RESCORE_BUCKETS[-1])
 
     def _pq4_funnel_or_none(self, snap: IndexSnapshot, q: torch.Tensor, k: int,
-                            allow_words, use_allow: bool):
-        """The three-stage 4-bit funnel (ops/pq4.py) -> fused packed result,
-        or None when this index or k does not take it (the 8-bit tiers
-        serve then)."""
+                            allow_words, use_allow: bool, s2d):
+        """The three-stage 4-bit funnel (ops/pq4.py) -> packed result (fused
+        with s2d, staged without), or None when this index or k does not
+        take it (the 8-bit tiers serve then)."""
         if snap.codes4 is None or snap.pq4 is None or self.metric not in vi.MATMUL_DISTANCES:
             return None
         kk = min(max(k, 1), snap.live)
@@ -1517,22 +1576,22 @@ class GpuVectorIndex(VectorIndex):
         if rc < kk:
             return None  # candidate set too small to cover k
         pq8 = snap.pq
-        return pq4.search_pq4_funnel_fused(
-            snap.codes4, snap.codes, snap.recon_norms4, snap.recon_norms, snap.tombs, snap.n,
-            q, snap.pq4.codebook_bf16(), snap.pq4.codebook_dev(),
-            pq8.codebook_dev().reshape(-1, pq8.ds), snap.rescore_dev, allow_words,
-            snap.slot_to_doc_dev, use_allow, kk, self.metric, rg4, rc,
-            active_g=max(1, -(-snap.n // ncols)),
-            kernel=pq4.use_kernel(self.metric, q.shape[0], ncols),
-            rot=snap.pq4.rotation_dev(),
-            codes8_blk=self._gen_blocks("codes", snap.codes, snap.store_gen,
-                                        pq_gmin.build_codes_blocks))
+        args = (snap.codes4, snap.codes, snap.recon_norms4, snap.recon_norms, snap.tombs, snap.n,
+                q, snap.pq4.codebook_bf16(), snap.pq4.codebook_dev(),
+                pq8.codebook_dev().reshape(-1, pq8.ds), snap.rescore_dev, allow_words)
+        statics = (use_allow, kk, self.metric, rg4, rc, max(1, -(-snap.n // ncols)),
+                   pq4.use_kernel(self.metric, q.shape[0], ncols), snap.pq4.rotation_dev(),
+                   self._gen_blocks("codes", snap.codes, snap.store_gen,
+                                    pq_gmin.build_codes_blocks))
+        if s2d is not None:
+            return pq4.search_pq4_funnel_fused(*args, s2d, *statics)
+        return pq4.search_pq4_funnel(*args, *statics)
 
     def _pq_gmin_or_none(self, snap: IndexSnapshot, q: torch.Tensor, k: int,
-                         allow_words, use_allow: bool):
-        """The codes kernel's search (ops/pq_gmin.py) -> fused packed
-        result, or None when `eligible_rg` routes this shape to the
-        reconstruction scan."""
+                         allow_words, use_allow: bool, s2d):
+        """The codes kernel's search (ops/pq_gmin.py) -> packed result
+        (fused with s2d, staged without), or None when `eligible_rg` routes
+        this shape to the reconstruction scan."""
         ncols = snap.capacity // gmin_scan.G
         kk = min(k, snap.live)
         rg = pq_gmin.eligible_rg(self.config.exact_topk, self.metric, snap.pq, q.shape[0],
@@ -1540,16 +1599,18 @@ class GpuVectorIndex(VectorIndex):
         if rg is None:
             return None
         pq8 = snap.pq
-        return pq_gmin.search_pq_gmin_fused(
-            snap.codes, snap.recon_norms, snap.tombs, snap.n, q, pq8.codebook_bf16(),
-            pq8.codebook_dev().reshape(-1, pq8.ds), allow_words, snap.slot_to_doc_dev,
-            use_allow, kk, self.metric, rg, active_g=max(1, -(-snap.n // ncols)),
-            rot=pq8.rotation_dev(),
-            codes_blk=self._gen_blocks("codes", snap.codes, snap.store_gen,
-                                       pq_gmin.build_codes_blocks))
+        args = (snap.codes, snap.recon_norms, snap.tombs, snap.n, q, pq8.codebook_bf16(),
+                pq8.codebook_dev().reshape(-1, pq8.ds), allow_words)
+        statics = (use_allow, kk, self.metric, rg, max(1, -(-snap.n // ncols)),
+                   pq8.rotation_dev(),
+                   self._gen_blocks("codes", snap.codes, snap.store_gen,
+                                    pq_gmin.build_codes_blocks))
+        if s2d is not None:
+            return pq_gmin.search_pq_gmin_fused(*args, s2d, *statics)
+        return pq_gmin.search_pq_gmin(*args, *statics)
 
     def _dispatch_full_pq(self, snap: IndexSnapshot, q: torch.Tensor, b: int, k: int,
-                          allow_list: Optional[AllowList]):
+                          allow_list: Optional[AllowList], s2d):
         """Compressed full-store search, in the reference's order: the
         4-bit funnel; the rescored tier (the fast scan reads the bf16 copy
         directly: less traffic and more accurate than scanning the codes
@@ -1559,15 +1620,15 @@ class GpuVectorIndex(VectorIndex):
         pqc = self.config.pq
         use_allow = allow_list is not None
         allow_words = self._allow_words(snap, allow_list) if use_allow else None
-        packed = self._pq4_funnel_or_none(snap, q, k, allow_words, use_allow)
+        packed = self._pq4_funnel_or_none(snap, q, k, allow_words, use_allow, s2d)
         if packed is not None:
-            return self._finalize_fused(packed, b, k)
+            return self._finalize(packed, snap, s2d, b, k)
         if pqc.rescore and snap.rescore_dev is not None:
-            return self._dispatch_scan(snap, q, b, k, allow_words, store=snap.rescore_dev,
+            return self._dispatch_scan(snap, q, b, k, allow_words, s2d, store=snap.rescore_dev,
                                        sq_norms=snap.rescore_sq_norms)
-        packed = self._pq_gmin_or_none(snap, q, k, allow_words, use_allow)
+        packed = self._pq_gmin_or_none(snap, q, k, allow_words, use_allow, s2d)
         if packed is not None:
-            return self._finalize_fused(packed, b, k)
+            return self._finalize(packed, snap, s2d, b, k)
         if self.metric in vi.MATMUL_DISTANCES:
             # per-chunk candidate depth: the pool of every chunk's winners
             # stays >= 512 (pq.rescoreLimit) whatever the chunk count
@@ -1584,22 +1645,38 @@ class GpuVectorIndex(VectorIndex):
             top, idx = _search_pq(snap.codes, snap.tombs, snap.n, lut, allow_words,
                                   min(k, snap.n, _PQ_SCAN_CHUNK), use_allow,
                                   -(-snap.n // _PQ_SCAN_CHUNK))
-        return self._finalize_fused(translate_pack(top, idx, snap.slot_to_doc_dev), b, k)
+        return self._finalize(_pack(top, idx, s2d), snap, s2d, b, k)
 
     @staticmethod
-    def _finalize_fused(packed: torch.Tensor, b: int, k: Optional[int] = None):
-        """finalize() of a dispatch: the ONE blocking device->host transfer
-        already carries final doc ids; the host half is dtype views."""
-        def finalize():
-            ids, dists = unpack_fused(packed.cpu().numpy())
-            if k is not None:
-                ids, dists = ids[:, :k], dists[:, :k]
-            return ids[:b], dists[:b]
+    def _finalize(packed: torch.Tensor, snap: IndexSnapshot, s2d, b: int,
+                  k: Optional[int] = None):
+        """finalize() of a dispatch: the ONE blocking device->host transfer.
+        Fused (s2d given), it already carries final doc ids and the host
+        half is dtype views. Staged (s2d None), it carries slot indices,
+        translated through the dispatching snapshot's own slot->doc mirror
+        (a later write cannot change an in-flight answer)."""
+        if s2d is not None:
+            def finalize():
+                ids, dists = unpack_fused(packed.cpu().numpy())
+                if k is not None:
+                    ids, dists = ids[:, :k], dists[:, :k]
+                return ids[:b], dists[:b]
 
-        return finalize
+            return finalize
+        slot_to_doc = snap.slot_to_doc
+
+        def finalize_staged():
+            top, idx = unpack_topk(packed.cpu().numpy())
+            if k is not None:
+                top, idx = top[:, :k], idx[:, :k]
+            top, idx = top[:b], idx[:b]
+            ids = np.where(idx >= 0, slot_to_doc[np.clip(idx, 0, None)], -1)
+            return ids.astype(np.uint64), top.astype(np.float32)
+
+        return finalize_staged
 
     def _dispatch_small_allow(self, snap: IndexSnapshot, q: torch.Tensor,
-                              b: int, k: int, allow_list: AllowList):
+                              b: int, k: int, allow_list: AllowList, s2d):
         """Gather tier (flatSearch over the allowList, flat_search.go:19).
         Compressed, the allowed rows are uploaded from the host copy."""
         empty = (np.zeros((b, 0), np.uint64), np.zeros((b, 0), np.float32))
@@ -1614,7 +1691,7 @@ class GpuVectorIndex(VectorIndex):
             sub = snap.store[rows]
         top, pos = _score_rows(sub, q, rows, snap.tombs, min(k, slots.size), self.metric)
         slot_idx = torch.where(pos >= 0, rows[torch.clamp(pos, min=0)], -1)
-        return self._finalize_fused(translate_pack(top, slot_idx, snap.slot_to_doc_dev), b)
+        return self._finalize(_pack(top, slot_idx, s2d), snap, s2d, b)
 
     def search_by_vector(
         self, vector: np.ndarray, k: int, allow_list: Optional[AllowList] = None

@@ -33,7 +33,7 @@ import torch
 
 from weaviate_tpu_torch.entities import vectorindex as vi
 from weaviate_tpu_torch.ops import _kernels
-from weaviate_tpu_torch.ops.topk import (bitmap_to_mask, query_block,
+from weaviate_tpu_torch.ops.topk import (bitmap_to_mask, pack_topk, query_block,
                                          rescore_distances, smallest_k,
                                          translate_pack)
 
@@ -195,6 +195,16 @@ def gmin_topk(store, sq_norms, tombs, n, q, allow_words, use_allow, k, metric,
     top = torch.cat(tops)
     idx = torch.where(torch.isinf(top), -1, torch.cat(idxs)).to(torch.int32)
     return top, idx
+
+
+def search_gmin(store, sq_norms, tombs, n, q, allow_words, use_allow, k, metric, rg,
+                active_g=G, rescore_blk=None):
+    """gmin_topk packed into the staged [B, 2k] int32 layout
+    (ops/topk.pack_topk): slot indices, translated to doc ids on the
+    host."""
+    top, idx = gmin_topk(store, sq_norms, tombs, n, q, allow_words, use_allow,
+                         k, metric, rg, active_g, rescore_blk)
+    return pack_topk(top, idx)
 
 
 def search_gmin_fused(store, sq_norms, tombs, n, q, allow_words, s2d, use_allow,

@@ -31,8 +31,8 @@ import torch
 from weaviate_tpu_torch.entities import vectorindex as vi
 from weaviate_tpu_torch.ops import pq_gmin
 from weaviate_tpu_torch.ops.gmin_scan import G, scan_bias
-from weaviate_tpu_torch.ops.topk import (query_block, rescore_distances, smallest_k,
-                                         translate_pack)
+from weaviate_tpu_torch.ops.topk import (pack_topk, query_block, rescore_distances,
+                                         smallest_k, translate_pack)
 
 C4 = 16  # centroids per 4-bit sub-quantizer (one nibble)
 
@@ -180,6 +180,17 @@ def pq4_funnel_topk(codes4p, codes8, norms4, norms8, tombs, n, q, codebook4_bf16
     top = torch.cat(tops)
     idx = torch.where(torch.isinf(top), -1, torch.cat(idxs)).to(torch.int32)
     return top, idx
+
+
+def search_pq4_funnel(codes4p, codes8, norms4, norms8, tombs, n, q, codebook4_bf16, codebook4,
+                      flat_cb8, rescore_rows, allow_words, use_allow, k, metric, rg4, rc,
+                      active_g=G, kernel=False, rot=None, codes8_blk=None):
+    """pq4_funnel_topk packed into the staged [B, 2k] int32 layout
+    (ops/topk.pack_topk)."""
+    top, idx = pq4_funnel_topk(codes4p, codes8, norms4, norms8, tombs, n, q, codebook4_bf16,
+                               codebook4, flat_cb8, rescore_rows, allow_words, use_allow, k,
+                               metric, rg4, rc, active_g, kernel, rot, codes8_blk)
+    return pack_topk(top, idx)
 
 
 def search_pq4_funnel_fused(codes4p, codes8, norms4, norms8, tombs, n, q, codebook4_bf16,

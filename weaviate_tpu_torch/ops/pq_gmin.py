@@ -38,8 +38,8 @@ import torch
 from weaviate_tpu_torch.entities import vectorindex as vi
 from weaviate_tpu_torch.ops import _kernels
 from weaviate_tpu_torch.ops.gmin_scan import G, _live_slices, scan_bias
-from weaviate_tpu_torch.ops.topk import (query_block, rescore_distances, smallest_k,
-                                         translate_pack)
+from weaviate_tpu_torch.ops.topk import (pack_topk, query_block, rescore_distances,
+                                         smallest_k, translate_pack)
 
 # launches of the K2 kernel by pq_group_min_scores (never the CPU path)
 launches = 0
@@ -236,6 +236,15 @@ def pq_gmin_topk(codes, recon_norms, tombs, n, q, codebook_bf16, flat_cb, allow_
     top = torch.cat(tops)
     idx = torch.where(torch.isinf(top), -1, torch.cat(idxs)).to(torch.int32)
     return top, idx
+
+
+def search_pq_gmin(codes, recon_norms, tombs, n, q, codebook_bf16, flat_cb, allow_words,
+                   use_allow, k, metric, rg, active_g=G, rot=None, codes_blk=None):
+    """pq_gmin_topk packed into the staged [B, 2k] int32 layout
+    (ops/topk.pack_topk)."""
+    top, idx = pq_gmin_topk(codes, recon_norms, tombs, n, q, codebook_bf16, flat_cb,
+                            allow_words, use_allow, k, metric, rg, active_g, rot, codes_blk)
+    return pack_topk(top, idx)
 
 
 def search_pq_gmin_fused(codes, recon_norms, tombs, n, q, codebook_bf16, flat_cb,

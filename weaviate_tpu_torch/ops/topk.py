@@ -1,5 +1,6 @@
-"""Masked top-k, candidate merging, result packing and the device
-slot->doc translation (twin of `weaviate_tpu/ops/topk.py`).
+"""Masked top-k, candidate merging, result packing (the staged [B, 2k]
+layout and the fused [B, 3k] one) and the device slot->doc translation
+(twin of `weaviate_tpu/ops/topk.py`).
 
 Smallest-k selection is `torch.topk(..., largest=False)`, which returns
 its k values in ascending order. Ties between equal finite distances may
@@ -67,6 +68,20 @@ def merge_top_k(dists_a, idx_a, dists_b, idx_b, k: int):
     return top, torch.gather(i, 1, pos)
 
 
+def pack_topk(top: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Pack (dists f32, slot idx) [B, k] each into one [B, 2k] int32
+    tensor, the distances as their bit pattern, so the host needs a single
+    device->host fetch (the staged dispatch's layout)."""
+    return torch.cat([top.contiguous().view(torch.int32), idx.to(torch.int32)], dim=1)
+
+
+def unpack_topk(packed: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side inverse of pack_topk: np [B, 2k] i32 -> (dists f32 [B, k],
+    slot idx i32 [B, k]), both views into the fetched buffer."""
+    k = packed.shape[1] // 2
+    return packed[:, :k].view("<f4"), packed[:, k:]
+
+
 def translate_pack(top: torch.Tensor, idx: torch.Tensor, s2d: torch.Tensor) -> torch.Tensor:
     """The final top-k's slot->doc translation, on the device, packed with
     the distances into one fetchable buffer.
@@ -86,6 +101,14 @@ def translate_pack(top: torch.Tensor, idx: torch.Tensor, s2d: torch.Tensor) -> t
     words = ids.contiguous().view(torch.int32).reshape(b, k, 2)
     return torch.cat([top.contiguous().view(torch.int32),
                       words[..., 0], words[..., 1]], dim=1)
+
+
+def retranslate_packed(packed: torch.Tensor, s2d: torch.Tensor) -> torch.Tensor:
+    """pack_topk layout -> the fused layout of translate_pack, on the
+    device: a packed result gains the slot->doc translation."""
+    kc = packed.shape[1] // 2
+    top = packed[:, :kc].contiguous().view(torch.float32)
+    return translate_pack(top, packed[:, kc:], s2d)
 
 
 def unpack_fused(packed: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
