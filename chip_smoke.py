@@ -214,11 +214,12 @@ def check_kernel(name, kernel, plain, q_all, biases, ncols, ag) -> float:
 
 
 def time_kernel(name, card, kernel, plain, library, q_all, bias2, ncols, ag, d, row_bytes,
-                extra_bytes, library_note) -> dict:
-    """Kernel, plain version and library yardstick at the slice and the
-    main shape, beside the bound; -> the main shape's numbers."""
+                extra_bytes, library_note, sizes=(SLICE, BATCH), detail="") -> dict:
+    """Kernel, plain version and library yardstick at each batch size of
+    `sizes` (the last the main shape), beside the bound; -> the main
+    shape's numbers."""
     rows = {}
-    for b in (SLICE, BATCH):
+    for b in sizes:
         q_b = q_all[:b]
         ms = cuda_ms(lambda: kernel(q_b, bias2, -2.0, ag), 3)
         plain_ms = cuda_ms(lambda: plain(q_b, bias2, -2.0, ag), 1)
@@ -227,10 +228,10 @@ def time_kernel(name, card, kernel, plain, library, q_all, bias2, ncols, ag, d, 
         bound_ms, bound_by = bound(b, ag, ncols, d, row_bytes, extra_bytes)
         rows[b] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                        bound_by=bound_by)
-        log(f"[{card}] {name} B={b} ncols={ncols} ag={ag} D={d}: kernel {ms:.3f} ms, "
+        log(f"[{card}] {name} B={b} ncols={ncols} ag={ag} D={d}{detail}: kernel {ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms, library {library_note} {lib_ms:.3f} ms, "
             f"bound {bound_ms:.3f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
-    return rows[BATCH]
+    return rows[sizes[-1]]
 
 
 def build_kernels() -> None:
@@ -613,7 +614,7 @@ def pq_workload(dev, card, seed):
 
         q_cpu = batches[0][cpu_rows]
         card_ids, card_d = idx.search_by_vectors(q_cpu, K)
-        rg = pq_gmin.eligible_rg(False, "dot", pq8, len(q_cpu), ncols, K)
+        rg = pq_gmin.eligible_rg(False, "dot", pq8, len(q_cpu), ncols, K, PQ_DIM)
         codes_c = snap.codes.cpu()
         cb_c = pq8.codebook_dev().cpu()
         cpu_twin_check("B2", card_ids, card_d, lambda: pq_gmin.search_pq_gmin_fused(
@@ -707,6 +708,10 @@ def pq_workload(dev, card, seed):
         2.0 * PQ_DIM, 0.0, f"bf16 matmul [Bx{PQ_DIM}]x[{PQ_DIM}x{store_bf.shape[0]}]"))
     del store3, store_bf, bias2
     torch.cuda.empty_cache()
+    scg, dp, smem = pq_gmin.codes_plan(PQ_DIM)
+    plan = (f", SCG {scg}, resident tile {G * scg * dp * 2} bytes, query ring "
+            f"{pq_gmin.RING_STAGES} x {pq_gmin.RING_BYTES // pq_gmin.RING_STAGES} bytes, "
+            f"{smem} bytes of shared memory")
     for key, name, fn, plain_fn, mb in (
             ("k2", "pq_gmin", pq_gmin.pq_group_min_scores, pq_gmin.pq_group_min_scores_reference,
              PQ_M),
@@ -722,7 +727,8 @@ def pq_workload(dev, card, seed):
             lambda q, b2, a, g: plain_fn(q, codes3, b2, cb, a, g),
             lambda q: torch.matmul(q.bfloat16(), recon.T), q_all, bias2, ncols, ag, PQ_DIM,
             float(mb), 2.0 * cb.numel(),
-            f"bf16 matmul [Bx{PQ_DIM}]x[{PQ_DIM}x{recon.shape[0]}] over the reconstruction"))
+            f"bf16 matmul [Bx{PQ_DIM}]x[{PQ_DIM}x{recon.shape[0]}] over the reconstruction",
+            sizes=(64, SLICE, BATCH), detail=plan))
         del codes3, cb, bias2, recon, codes
         torch.cuda.empty_cache()
     return [

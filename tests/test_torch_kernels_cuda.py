@@ -78,20 +78,35 @@ def test_gmin_kernel_bf16_store_matches_plain_version(card, b, ncols, d, ag):
 
 
 # (B, ncols, D, M, C, ag): ds = 4 (element path), 8 and 16 (16-byte path),
-# 25 (segments straddle the 128-wide stages), 1 (the tile encoder's M = D)
+# 25 (segments straddle the 64-deep chunks), 1 (the tile encoder's M = D)
 _CODES_SHAPES = [(16, 1024, 32, 8, 32, 3), (77, 1000, 768, 96, 256, 16),
                  (9, 130, 200, 8, 200, 2), (40, 700, 64, 64, 16, 5),
                  (300, 4096, 128, 8, 256, 16)]
+# the resident tile's plans (ops/pq_gmin.codes_plan): SCG 8 (D 768), 4 (D
+# 1024, 1536), 2 (D 3072), 1 at the plan's limit (D 6208); D = 30 with ds = 3
+# (the padded query path); B 8 and 65, ncols off every SCG, ag 1, 5, 16
+_PLAN_SHAPES = [(65, 1001, 768, 96, 256, 16), (8, 1001, 1024, 128, 256, 5),
+                (65, 300, 1536, 96, 64, 1), (8, 257, 3072, 96, 32, 16),
+                (65, 101, 6208, 194, 16, 5), (8, 1001, 30, 10, 200, 16)]
+
+
+def _codes_queries(rng, b, d, card):
+    """Gaussian queries, scaled past D = 768 so the products keep D = 768's
+    magnitude: the f32 sums of the kernel and the plain version differ by
+    about eps * sqrt(D) * |partial sums|, which the stated atol bounds at
+    that magnitude."""
+    q = rng.standard_normal((b, d)).astype(np.float32) * min(1.0, (768 / d) ** 0.5)
+    return torch.from_numpy(q.astype(np.float32)).to(card)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,ncols,d,m,c,ag", _CODES_SHAPES)
+@pytest.mark.parametrize("b,ncols,d,m,c,ag", _CODES_SHAPES + _PLAN_SHAPES)
 @pytest.mark.parametrize("alpha", [-2.0, -1.0])
 def test_pq8_kernel_matches_plain_version(card, b, ncols, d, m, c, ag, alpha):
     """K2 against its plain version; tolerance as K1's (the same bf16
     operands summed in another order)."""
     rng = np.random.default_rng(b * m)
-    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(card)
+    q = _codes_queries(rng, b, d, card)
     codes = torch.from_numpy(rng.integers(0, c, (16, ncols, m)).astype(np.uint8)).to(card)
     cb = torch.from_numpy(rng.standard_normal((m, c, d // m)).astype(np.float32)).to(card)
     cb = cb.to(torch.bfloat16)
@@ -106,11 +121,12 @@ def test_pq8_kernel_matches_plain_version(card, b, ncols, d, m, c, ag, alpha):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,ncols,d,m,c,ag", [s for s in _CODES_SHAPES if s[3] % 2 == 0])
+@pytest.mark.parametrize("b,ncols,d,m,c,ag",
+                         [s for s in _CODES_SHAPES + _PLAN_SHAPES if s[3] % 2 == 0])
 def test_pq4_kernel_matches_plain_version(card, b, ncols, d, m, c, ag):
     """K3 against its plain version over nibble-packed codes."""
     rng = np.random.default_rng(b * m + 1)
-    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(card)
+    q = _codes_queries(rng, b, d, card)
     packed = torch.from_numpy(rng.integers(0, 256, (16, ncols, m // 2)).astype(np.uint8)).to(card)
     cb = torch.from_numpy(rng.standard_normal((m, 16, d // m)).astype(np.float32)).to(card)
     cb = cb.to(torch.bfloat16)
@@ -122,6 +138,21 @@ def test_pq4_kernel_matches_plain_version(card, b, ncols, d, m, c, ag):
     want = pq4.pq4_group_min_scores_reference(q, packed, bias, cb, -2.0, active_g=ag)
     assert torch.equal(torch.isinf(got), torch.isinf(want))
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_codes_kernels_raise_past_the_plan(card):
+    """A depth whose store tile fits in no plan (D 6272: 16 x 6272 bf16 is
+    over 227 KB with the ring) is refused on the card, never served by a
+    plain version; the routers send such shapes to the other scans."""
+    q = torch.zeros((8, 6272), device=card)
+    bias = torch.zeros((16, 64), device=card)
+    for fn, nb, c in ((pq_gmin.pq_group_min_scores, 98, 16),
+                      (pq4.pq4_group_min_scores, 49, 16)):
+        codes = torch.zeros((16, 64, nb), dtype=torch.uint8, device=card)
+        cb = torch.zeros((98, c, 64), dtype=torch.bfloat16, device=card)
+        with pytest.raises(ValueError, match="does not fit"):
+            fn(q, codes, bias, cb, -1.0)
 
 
 @pytest.mark.cuda

@@ -13,6 +13,8 @@ Tolerances, and why:
 - layouts and LUT lookups: exact where no arithmetic is involved.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -222,6 +224,110 @@ def test_pq4_funnel_topk_matches_jax(metric, kernel, rescore, use_allow, opq):
         tpqg.build_codes_blocks(codes8))
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_allclose(tt.numpy(), np.asarray(jt), rtol=1e-5, atol=1e-5)
+
+
+# D -> the resident tile's group columns (None: no plan, the tile does not
+# fit even at one column)
+_PLANS = {8: 8, 30: 8, 128: 8, 768: 8, 769: 4, 1024: 4, 1536: 4, 1600: 2, 3072: 2, 3136: 1,
+          6144: 1, 6208: 1, 6209: None, 6272: None, 8192: None}
+
+
+@pytest.mark.parametrize("d", sorted(_PLANS))
+def test_codes_plan_fits_shared_memory(d):
+    """The largest SCG of 8, 4, 2, 1 whose bf16 tile (16 slices x SCG rows
+    x roundup(D, 64)) fits beside the query ring in a block's 227 KB."""
+    plan = tpqg.codes_plan(d)
+    if _PLANS[d] is None:
+        assert plan is None
+        assert G * 1 * (-(-d // 64) * 64) * 2 + tpqg.RING_BYTES + tpqg.SMEM_RESERVE > 232_448
+        return
+    scg, dp, smem = plan
+    assert (scg, dp % 64, dp - d) == (_PLANS[d], 0, dp - d) and 0 <= dp - d < 64
+    assert smem == G * scg * dp * 2 + tpqg.RING_BYTES + tpqg.SMEM_RESERVE <= 232_448
+    if scg < 8:  # twice the columns would not fit
+        assert G * 2 * scg * dp * 2 + tpqg.RING_BYTES + tpqg.SMEM_RESERVE > 232_448
+
+
+# (b, ncols, kk, d, m, c): both packages take their kernel on the first
+# three; the port's plan alone takes the next two (the reference's VMEM
+# budget refuses them); the last two are past the port's plan
+_ROUTES = [(16, 1024, 10, 32, 8, 32), (64, 4096, 10, 128, 16, 256), (8, 64, 5, 64, 64, 16),
+           (16, 65536, 10, 768, 96, 256), (16, 4096, 10, 6208, 97, 16),
+           (16, 1024, 10, 6272, 98, 16), (16, 1024, 10, 8192, 64, 256)]
+
+
+@pytest.mark.parametrize("b,ncols,kk,d,m,c", _ROUTES)
+@pytest.mark.parametrize("ag", [1, 5, 16])
+@pytest.mark.parametrize("metric", ["l2-squared", "dot"])
+def test_codes_routing_matches_reference_within_the_plan(b, ncols, kk, d, m, c, ag, metric):
+    """eligible_rg and pq4.use_kernel against the reference's eligible_rg
+    and pallas_eligible: the same answer where both take the kernel,
+    refusal past the port's plan, whatever the live slices."""
+    state = SimpleNamespace(_gmin_broken=False)
+    pq = SimpleNamespace(centroids=c, segments=m)
+    rg = tpqg.eligible_rg(False, metric, pq, b, ncols, kk, d)
+    k3 = tpq4.use_kernel(metric, b, ncols, d)
+    if tpqg.codes_plan(d) is None:
+        assert rg is None and not k3
+        return
+    assert rg is not None and k3
+    want_rg = jpqg.eligible_rg(state, False, metric, pq, b, ncols, kk, d, ag)
+    if want_rg is not None:
+        assert rg == want_rg
+    if jpq4.pallas_eligible(state, metric, b, ncols, d, m // 2, ag):
+        assert k3
+    # the shapes the plan does not decide route alike
+    assert tpqg.eligible_rg(False, metric, pq, 7, ncols, kk, d) is None
+    assert not tpq4.use_kernel(metric, 7, ncols, d)
+    assert tpqg.eligible_rg(False, "manhattan", pq, b, ncols, kk, d) is None
+
+
+@pytest.mark.parametrize("pq", [{"rescore": False}, {"bits": 4}])
+def test_index_past_the_plan_answers_without_the_codes_kernels(tmp_path, monkeypatch, pq):
+    """With a shared-memory limit under the smallest tile of this D, the
+    codes-only tier answers through the reconstruction scan and the funnel's
+    stage 1 through the byte-LUT scan: neither wrapper is called and no
+    launch counted. The answers equal the JAX index's on the same shard
+    with its VMEM budget at 0, which routes it to the same scans (slots
+    exact, distances rtol 1e-5: the same arithmetic in another order)."""
+    from weaviate_tpu.entities import vectorindex as jvi
+    from weaviate_tpu.index import new_vector_index as jax_new_index
+    from weaviate_tpu_torch.entities import vectorindex as tvi
+    from weaviate_tpu_torch.index import new_vector_index
+
+    rng = np.random.default_rng(9)
+    vecs = rng.standard_normal((N, D)).astype(np.float32)
+    q = rng.standard_normal((B, D)).astype(np.float32)
+    conf = {"distance": "l2-squared", "flatSearchCutoff": 500,
+            "pq": {"enabled": True, "segments": M, "centroids": 32, **pq}}
+
+    def port():
+        return new_vector_index(tvi.parse_and_validate_config("hnsw_tpu", conf), str(tmp_path),
+                                device="cpu")
+
+    w = port()
+    w.add_batch(np.arange(N), vecs)
+    assert w.compressed
+    w.shutdown()
+    calls = []
+    for mod, name in ((tpqg, "pq_group_min_scores"), (tpq4, "pq4_group_min_scores")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name, **kw: (calls.append(_n),
+                                                                            _fn(*a, **kw))[1])
+    tidx = port()
+    tidx.search_by_vectors(q, K)
+    assert len(calls) == 1  # the kernel route at the real limit
+    monkeypatch.setattr(tpqg, "SMEM_LIMIT", G * 1 * 64 * 2 + tpqg.RING_BYTES + tpqg.SMEM_RESERVE - 1)
+    assert tpqg.codes_plan(D) is None
+    for mod in (jpqg, jpq4):
+        monkeypatch.setattr(mod, "_VMEM_BUDGET", 0)
+    jidx = jax_new_index(jvi.parse_and_validate_config("hnsw_tpu", conf), str(tmp_path))
+    before = (tpqg.launches, tpq4.launches)
+    ids, d = tidx.search_by_vectors(q, K)
+    assert len(calls) == 1 and (tpqg.launches, tpq4.launches) == before
+    want_ids, want_d = jidx.search_by_vectors(q, K)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_allclose(d, want_d, rtol=1e-5, atol=1e-5)
 
 
 def test_codes_wrappers_reject_other_devices():

@@ -1,8 +1,7 @@
-// The group-min tile loop shared by the port's scan kernels (K1 in
-// gmin_scan.cu, K2 and K3 in pq_gmin.cu, K4 and K5 in gmin_layouts.cu).
-// Each kernel differs only in how it stages the store operand: K1 reads an
-// f32 or bf16 store, K2 and K3 rebuild the rows from PQ codes and a bf16
-// codebook, K4 and K5 read a store laid out depth-major. The staging is a
+// The group-min tile loop shared by the port's dense scan kernels (K1 in
+// gmin_scan.cu, K4 and K5 in gmin_layouts.cu). Each kernel differs only in
+// how it stages the store operand: K1 reads an f32 or bf16 store, K4 and K5
+// read a store laid out depth-major. The staging is a
 // `Stager` object with one method,
 //
 //   __device__ void stage(__nv_bfloat16* dst, int g, int64_t c0, int64_t D,
@@ -11,7 +10,7 @@
 // which fills dst with bf16 values of store slice g, columns c0 .. c0+BC,
 // depth d0 .. d0+dkp, and zeros past ncols or past the live depth dk (zeros
 // add nothing to a dot product). The loop's compile-time layout XT says how
-// dst is laid out: false (K1-K3), [BC columns x LDS pitch], one column's
+// dst is laid out: false (K1), [BC columns x LDS pitch], one column's
 // depth run per row, read as a col_major B operand; true (K4, K5), [DK
 // depth x LDX pitch], one depth's run of columns per row, read as a
 // row_major B operand (the layout of a [D, ncols] store, so a stager copies

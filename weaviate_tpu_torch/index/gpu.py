@@ -1580,7 +1580,8 @@ class GpuVectorIndex(VectorIndex):
                 q, snap.pq4.codebook_bf16(), snap.pq4.codebook_dev(),
                 pq8.codebook_dev().reshape(-1, pq8.ds), snap.rescore_dev, allow_words)
         statics = (use_allow, kk, self.metric, rg4, rc, max(1, -(-snap.n // ncols)),
-                   pq4.use_kernel(self.metric, q.shape[0], ncols), snap.pq4.rotation_dev(),
+                   pq4.use_kernel(self.metric, q.shape[0], ncols, q.shape[1]),
+                   snap.pq4.rotation_dev(),
                    self._gen_blocks("codes", snap.codes, snap.store_gen,
                                     pq_gmin.build_codes_blocks))
         if s2d is not None:
@@ -1595,7 +1596,7 @@ class GpuVectorIndex(VectorIndex):
         ncols = snap.capacity // gmin_scan.G
         kk = min(k, snap.live)
         rg = pq_gmin.eligible_rg(self.config.exact_topk, self.metric, snap.pq, q.shape[0],
-                                 ncols, kk)
+                                 ncols, kk, q.shape[1])
         if rg is None:
             return None
         pq8 = snap.pq

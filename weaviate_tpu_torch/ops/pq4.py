@@ -8,7 +8,8 @@ nibble. Search runs three stages:
   1. a 4-bit ADC group-min scan over the whole slab -> the top C/16
      groups (C = rg4 * 16 rows). The hand-written kernel K3
      (`csrc/pq_gmin.cu`, `pq4_group_min_scores`) serves batches of 8 rows
-     or more; smaller batches take the byte-LUT scan
+     or more at depths whose resident store tile fits in shared memory
+     (`use_kernel`); other shapes take the byte-LUT scan
      (`pq4_scores_traceable`: the two 4-bit LUTs of a packed byte folded
      into one 256-entry LUT per byte). That is a routing rule, as the
      reference's (`pallas_eligible`), not a fallback;
@@ -72,10 +73,13 @@ def pq4_group_min_scores(q: torch.Tensor, codes3p: torch.Tensor, bias2: torch.Te
     return out
 
 
-def use_kernel(metric: str, b: int, ncols: int) -> bool:
+def use_kernel(metric: str, b: int, ncols: int, dim: int) -> bool:
     """Stage 1's routing rule: K3 for the matmul metrics at 8 query rows
-    or more and at least 64 group columns; the byte-LUT scan otherwise."""
-    return metric in vi.MATMUL_DISTANCES and b >= 8 and ncols >= 64
+    or more, at least 64 group columns and a depth whose store tile has a
+    plan (`pq_gmin.codes_plan`, the counterpart of the reference's
+    `fits_vmem_pq4`); the byte-LUT scan otherwise."""
+    return (metric in vi.MATMUL_DISTANCES and b >= 8 and ncols >= 64
+            and pq_gmin.codes_plan(dim) is not None)
 
 
 def plan_funnel(k: int, n: int, c_cap: int, rc_cap: int) -> tuple[int, int]:
