@@ -48,12 +48,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    tier's main path and read just after), the staged batches, a
    torch.profiler breakdown of one sync batch;
 4. timings on the card, after the indexes are freed: each kernel, its
-   plain version, a library yardstick and the bound, at the 1024-query
-   slice and the 16384-query main shape;
+   plain version, a library yardstick and the bound, at 64 queries, the
+   1024-query slice and the 16384-query main shape, beside its resident-tile
+   plan (ops/gmin_scan.resident_plan); K1 also at 8 live slices of the same
+   store (the live-slice bound), and with the plan's tile of N 256 rows in
+   turns with one of N 128 (SCG 8) at D=128, launched through the
+   library's entry point since the wrapper takes only the plan;
 5. C, after the B indexes are freed: the layout kernels' checks, the three
    profiler modes with their launch counts (each count set to 0 just
    before the modes run and read just after), the layout kernels' timings;
 6. the card line, one JSON line of per-kernel numbers, the result line.
+
+Each phase also names itself on stderr as it starts. A watchdog stops the
+run at WATCHDOG_S seconds: it prints every thread's Python stack to stderr
+and exits non-zero, so a run that hangs says where.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
@@ -62,6 +70,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import json
 import os
 import shutil
@@ -90,10 +99,18 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-3
 KERNELS = ("gmin_scan", "pq_gmin", "gmin_layouts")  # the CUDA sources
 PROF_N, PROF_ITERS = 1 << 20, 8  # workload C: the profiler's default shape
+WATCHDOG_S = 1140  # seconds: a run past this has stalled (a whole run takes ~200 s)
+T_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase(name: str) -> None:
+    """Name the phase that starts now on stderr (where a hang shows)."""
+    print(f"chip_smoke: {name} at {time.perf_counter() - T_START:.1f} s", file=sys.stderr,
+          flush=True)
 
 
 def make_data(n, dim, rng):
@@ -234,6 +251,43 @@ def time_kernel(name, card, kernel, plain, library, q_all, bias2, ncols, ag, d, 
     return rows[sizes[-1]]
 
 
+def time_k1_widths(card, q, store3, bias2, ag, scgs) -> None:
+    """K1 f32 with scg group columns per block for each of scgs, in turns
+    (a, b, b, a), each held against the wrapper's answer. The wrapper always
+    launches resident_plan's tile, so a narrower one is launched here
+    through the library's C entry point (no launch is counted)."""
+    from weaviate_tpu_torch.ops import gmin_scan
+    lib = gmin_scan._gmin_lib()
+    (b, d), ncols = q.shape, store3.shape[1]
+    plan = gmin_scan.resident_plan(d, ag)
+    scratch = gmin_scan.query_scratch(q, plan)
+    out = torch.empty((b, ncols), dtype=torch.float32, device=q.device)
+    vec = int(d % 4 == 0)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+
+    def run(scg):
+        rc = lib.gmin_scan_launch(q.data_ptr(), store3.data_ptr(), bias2.data_ptr(),
+                                  scratch.data_ptr(), out.data_ptr(), b, ncols, d, ag, -2.0,
+                                  scg, vec, vec, stream)
+        if rc != 0:
+            raise RuntimeError(f"gmin_scan scg {scg}: " + lib.gmin_scan_error_string(rc).decode())
+
+    want = gmin_scan.group_min_scores(q, store3, bias2, -2.0, active_g=ag)
+    for scg in scgs + scgs[::-1]:
+        ms = cuda_ms(lambda: run(scg), 3)
+        torch.testing.assert_close(out, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+        log(f"[{card}] gmin_scan f32 B={b} ag={ag} D={d} N {plan.slices * scg} (SCG {scg}"
+            f"{', the plan' if scg == plan.scg else ''}): {ms:.3f} ms")
+
+
+def plan_note(plan) -> str:
+    """The resident-tile plan as the timing lines print it."""
+    from weaviate_tpu_torch.ops.gmin_scan import RING_BYTES, RING_STAGES
+    return (f", S {plan.slices}, SCG {plan.scg} (N {plan.width}), resident tile "
+            f"{plan.width * plan.dp * 2} bytes, query ring {RING_STAGES} x "
+            f"{RING_BYTES // RING_STAGES} bytes, {plan.smem} bytes of shared memory")
+
+
 def build_kernels() -> None:
     """Every CUDA source, one nvcc each, all started together; then load."""
     from weaviate_tpu_torch.ops import _kernels, gmin_scan, pq_gmin
@@ -249,7 +303,7 @@ def build_kernels() -> None:
         secs, out = _kernels.build_info.get(name, (0.0, "(already built)"))
         log(f"  {name}: nvcc {secs:.2f} s")
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "C75")):
                 log(f"    ptxas: {line.strip()}")
 
 
@@ -339,18 +393,36 @@ def headline(dev, card, seed) -> dict:
             raise AssertionError("answers after the restart differ from before it")
         np.testing.assert_allclose(d_r, d_d, rtol=1e-6)
         log(f"A restart: replayed vector.log and answered the same in {restart_s:.2f} s")
+        phase("A profile")
         profile_sync_batch(idx, batches[0], card, "A")
+        phase("A shutdown")
         idx.shutdown()
         del idx, x_dev
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    phase("A timings")
     store_bf = store.bfloat16()
+    plan = gmin_scan.resident_plan(DIM, ag)
     row = time_kernel("gmin_scan f32", card, k1, k1_plain,
                       lambda q: torch.matmul(q.bfloat16(), store_bf.T), q_all, biases[0][2],
-                      ncols, ag, DIM, 4.0 * DIM, 0.0, f"bf16 matmul [Bx{DIM}]x[{DIM}x{capacity}]")
+                      ncols, ag, DIM, 4.0 * DIM, 0.0, f"bf16 matmul [Bx{DIM}]x[{DIM}x{capacity}]",
+                      sizes=(64, SLICE, BATCH), detail=plan_note(plan))
     del store_bf
+    torch.cuda.empty_cache()
+    # the live-slice bound: the same store scanned over its first 8 slices
+    # (slice g holds rows g * ncols ..: the first half of the store)
+    store_bf = store[: capacity // 2].bfloat16()
+    half = time_kernel("gmin_scan f32", card, k1, k1_plain,
+                       lambda q: torch.matmul(q.bfloat16(), store_bf.T), q_all, biases[0][2],
+                       ncols, 8, DIM, 4.0 * DIM, 0.0,
+                       f"bf16 matmul [Bx{DIM}]x[{DIM}x{capacity // 2}]", sizes=(BATCH,),
+                       detail=plan_note(gmin_scan.resident_plan(DIM, 8)))
+    del store_bf
+    log(f"[{card}] gmin_scan f32 live-slice bound: ag 8 {half['ms']:.3f} ms = "
+        f"{half['ms'] / row['ms']:.1%} of ag {ag} {row['ms']:.3f} ms")
+    time_k1_widths(card, q_all[:BATCH], store3, biases[0][2], ag, (plan.scg, plan.scg // 2))
     log(f"[{card}] A end to end, {BATCH}-query batches, k={K}, n={N}: sync p50 "
         f"{p50 * 1e3:.1f} ms (staged {staged_p50 * 1e3:.1f} ms), pipelined {qps:.0f} QPS, "
         f"ingest {N / ingest_s:.0f} rows/s, restart {restart_s:.2f} s")
@@ -517,6 +589,7 @@ def pq_workload(dev, card, seed):
     out, keep = {}, {}
 
     # B1: bits 8, rescore (K1 over the bf16 copy)
+    phase("B1")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_b1_")
     try:
         conf = pq_conf()
@@ -573,6 +646,7 @@ def pq_workload(dev, card, seed):
     torch.cuda.empty_cache()
 
     # B2: bits 8, codes only (K2)
+    phase("B2")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_b2_")
     try:
         conf = pq_conf(rescore=False)
@@ -635,6 +709,7 @@ def pq_workload(dev, card, seed):
     torch.cuda.empty_cache()
 
     # B3: bits 4, rescore (the funnel, K3)
+    phase("B3")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_b3_")
     try:
         conf = pq_conf(bits=4)
@@ -698,6 +773,7 @@ def pq_workload(dev, card, seed):
     torch.cuda.empty_cache()
 
     # timings, with the indexes freed (the yardsticks write [B, 1M] bf16)
+    phase("B timings")
     store3, bias2, ncols, ag = keep.pop("k1")
     store_bf = store3.view(-1, PQ_DIM)
     out["k1"].update(time_kernel(
@@ -705,13 +781,10 @@ def pq_workload(dev, card, seed):
         lambda q, b2, a, g: gmin_scan.group_min_scores(q, store3, b2, a, active_g=g),
         lambda q, b2, a, g: gmin_scan.group_min_scores_reference(q, store3, b2, a, g),
         lambda q: torch.matmul(q.bfloat16(), store_bf.T), q_all, bias2, ncols, ag, PQ_DIM,
-        2.0 * PQ_DIM, 0.0, f"bf16 matmul [Bx{PQ_DIM}]x[{PQ_DIM}x{store_bf.shape[0]}]"))
+        2.0 * PQ_DIM, 0.0, f"bf16 matmul [Bx{PQ_DIM}]x[{PQ_DIM}x{store_bf.shape[0]}]",
+        sizes=(64, SLICE, BATCH), detail=plan_note(gmin_scan.resident_plan(PQ_DIM, ag))))
     del store3, store_bf, bias2
     torch.cuda.empty_cache()
-    scg, dp, smem = pq_gmin.codes_plan(PQ_DIM)
-    plan = (f", SCG {scg}, resident tile {G * scg * dp * 2} bytes, query ring "
-            f"{pq_gmin.RING_STAGES} x {pq_gmin.RING_BYTES // pq_gmin.RING_STAGES} bytes, "
-            f"{smem} bytes of shared memory")
     for key, name, fn, plain_fn, mb in (
             ("k2", "pq_gmin", pq_gmin.pq_group_min_scores, pq_gmin.pq_group_min_scores_reference,
              PQ_M),
@@ -728,7 +801,7 @@ def pq_workload(dev, card, seed):
             lambda q: torch.matmul(q.bfloat16(), recon.T), q_all, bias2, ncols, ag, PQ_DIM,
             float(mb), 2.0 * cb.numel(),
             f"bf16 matmul [Bx{PQ_DIM}]x[{PQ_DIM}x{recon.shape[0]}] over the reconstruction",
-            sizes=(64, SLICE, BATCH), detail=plan))
+            sizes=(64, SLICE, BATCH), detail=plan_note(pq_gmin.codes_plan(PQ_DIM, ag))))
         del codes3, cb, bias2, recon, codes
         torch.cuda.empty_cache()
     return [
@@ -851,6 +924,7 @@ def main() -> int:
         return 1
     import weaviate_tpu_torch  # noqa: F401 — fails here without the package beside the script
 
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # ground truth in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -867,20 +941,25 @@ def main() -> int:
         raise RuntimeError(f"the kernels target sm_90a; this card is sm_{cap[0]}{cap[1]}")
 
     # 2. build
+    phase("build")
     build_kernels()
 
     # 3-5. the workloads
     t0 = time.perf_counter()
+    phase("workload A")
     k1_f32 = headline(dev, card, args.seed)
     log(f"workload A: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    phase("workload B")
     pq_rows = pq_workload(dev, card, args.seed)
     log(f"workload B: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    phase("workload C")
     layout_rows = profiler_phase(dev, card, args.seed)
     log(f"workload C: {time.perf_counter() - t0:.1f} s; total {time.perf_counter() - t_start:.1f} s")
 
     # 6. result lines
+    faulthandler.cancel_dump_traceback_later()
     log(card)
     print(json.dumps({"kernels": [k1_f32, *pq_rows, *layout_rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -26,20 +26,43 @@ def card():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,ncols,d,ag", [(16, 1024, 32, 3), (77, 1000, 129, 16),
-                                          (5, 130, 30, 1), (300, 4096, 128, 16)])
-def test_gmin_kernel_matches_plain_version(card, b, ncols, d, ag):
-    """Ragged edges included: B and ncols off the block tile, D off 16 and
-    off 4 (the scalar staging path), D over one staged depth. Tolerance
-    rtol 1e-4, atol 1e-3: the same bf16 operands, summed in f32 by the
-    tensor cores in another order."""
-    rng = np.random.default_rng(b)
-    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(card)
-    x = torch.from_numpy(rng.standard_normal((16, ncols, d)).astype(np.float32)).to(card)
+def _dead_bias(rng, ncols, card):
     bias = torch.from_numpy(rng.standard_normal((16, ncols)).astype(np.float32)).to(card)
     bias[:, ::7] = float("inf")
     bias[:, ::5] = float("inf")  # every 35th group is dead in all slices
+    return bias
+
+
+def _scaled_queries(rng, b, d, card):
+    """Gaussian queries, scaled past D = 768 so the products keep D = 768's
+    magnitude: the f32 sums of the kernel and the plain version differ by
+    about eps * sqrt(D) * |partial sums|, which the stated atol bounds at
+    that magnitude."""
+    q = rng.standard_normal((b, d)).astype(np.float32) * min(1.0, (768 / d) ** 0.5)
+    return torch.from_numpy(q.astype(np.float32)).to(card)
+
+
+# K1's resident plans (ops/gmin_scan.resident_plan): every tile width (N
+# 256 up to D 384, 128 at D 392 and 768, 64 at 1536, 32 at 3072, 16 at
+# the plan's limit D 6208), D 30 (D % 4 != 0: the element fills), ag 1, 5,
+# 9, 16 (tiles of S 1, 8, 16 slices), B 8 and 65, ncols 1001 off every SCG
+_K1_PLAN_SHAPES = [(8 if ag in (1, 9) else 65, 1001, d, ag)
+                   for d in (30, 128, 384, 392, 768, 1536, 3072, 6208) for ag in (1, 5, 9, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ncols,d,ag", [(16, 1024, 32, 3), (77, 1000, 129, 16),
+                                          (5, 130, 30, 1), (300, 4096, 128, 16)]
+                         + _K1_PLAN_SHAPES)
+def test_gmin_kernel_matches_plain_version(card, b, ncols, d, ag):
+    """Ragged edges included: B and ncols off the block tile, D off 16 and
+    off 4 (the element fill), D over one 64-deep chunk, and every plan.
+    Tolerance rtol 1e-4, atol 1e-3: the same bf16 operands, summed in f32
+    by the tensor cores in another order."""
+    rng = np.random.default_rng(b * d + ag)
+    q = _scaled_queries(rng, b, d, card)
+    x = torch.from_numpy(rng.standard_normal((16, ncols, d)).astype(np.float32)).to(card)
+    bias = _dead_bias(rng, ncols, card)
     before = gmin_scan.launches
     got = gmin_scan.group_min_scores(q, x, bias, -2.0, active_g=ag)
     torch.cuda.synchronize()
@@ -49,22 +72,16 @@ def test_gmin_kernel_matches_plain_version(card, b, ncols, d, ag):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
 
 
-def _dead_bias(rng, ncols, card):
-    bias = torch.from_numpy(rng.standard_normal((16, ncols)).astype(np.float32)).to(card)
-    bias[:, ::7] = float("inf")
-    bias[:, ::5] = float("inf")  # every 35th group is dead in all slices
-    return bias
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,ncols,d,ag", [(16, 1024, 32, 3), (77, 1000, 136, 16),
-                                          (5, 130, 30, 1), (300, 4096, 768, 16)])
+                                          (5, 130, 30, 1), (300, 4096, 768, 16)]
+                         + _K1_PLAN_SHAPES)
 def test_gmin_kernel_bf16_store_matches_plain_version(card, b, ncols, d, ag):
-    """K1's bf16-store instantiation: the 16-byte copy (D % 8 == 0) and the
-    element copy (D = 30), ragged B and ncols, D over one staged depth.
-    Same tolerance as the f32 store."""
-    rng = np.random.default_rng(b + 1)
-    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(card)
+    """K1's bf16-store filler: the 16-byte copy (D % 8 == 0) and the
+    element copy (D = 30), ragged B and ncols, D over one 64-deep chunk,
+    every plan. Same tolerance as the f32 store."""
+    rng = np.random.default_rng(b * d + ag + 1)
+    q = _scaled_queries(rng, b, d, card)
     x = torch.from_numpy(rng.standard_normal((16, ncols, d)).astype(np.float32)).to(card)
     x = x.to(torch.bfloat16)
     bias = _dead_bias(rng, ncols, card)
@@ -82,21 +99,13 @@ def test_gmin_kernel_bf16_store_matches_plain_version(card, b, ncols, d, ag):
 _CODES_SHAPES = [(16, 1024, 32, 8, 32, 3), (77, 1000, 768, 96, 256, 16),
                  (9, 130, 200, 8, 200, 2), (40, 700, 64, 64, 16, 5),
                  (300, 4096, 128, 8, 256, 16)]
-# the resident tile's plans (ops/pq_gmin.codes_plan): SCG 8 (D 768), 4 (D
-# 1024, 1536), 2 (D 3072), 1 at the plan's limit (D 6208); D = 30 with ds = 3
-# (the padded query path); B 8 and 65, ncols off every SCG, ag 1, 5, 16
+# the resident tile's plans (ops/pq_gmin.codes_plan at 16 live slices): SCG
+# 8 (D 768), 4 (D 1024, 1536), 2 (D 3072), 1 at the plan's limit (D 6208);
+# D = 30 with ds = 3 (the padded query path, SCG 16); B 8 and 65, ncols off
+# every SCG, ag 1, 5, 16
 _PLAN_SHAPES = [(65, 1001, 768, 96, 256, 16), (8, 1001, 1024, 128, 256, 5),
                 (65, 300, 1536, 96, 64, 1), (8, 257, 3072, 96, 32, 16),
                 (65, 101, 6208, 194, 16, 5), (8, 1001, 30, 10, 200, 16)]
-
-
-def _codes_queries(rng, b, d, card):
-    """Gaussian queries, scaled past D = 768 so the products keep D = 768's
-    magnitude: the f32 sums of the kernel and the plain version differ by
-    about eps * sqrt(D) * |partial sums|, which the stated atol bounds at
-    that magnitude."""
-    q = rng.standard_normal((b, d)).astype(np.float32) * min(1.0, (768 / d) ** 0.5)
-    return torch.from_numpy(q.astype(np.float32)).to(card)
 
 
 @pytest.mark.cuda
@@ -106,7 +115,7 @@ def test_pq8_kernel_matches_plain_version(card, b, ncols, d, m, c, ag, alpha):
     """K2 against its plain version; tolerance as K1's (the same bf16
     operands summed in another order)."""
     rng = np.random.default_rng(b * m)
-    q = _codes_queries(rng, b, d, card)
+    q = _scaled_queries(rng, b, d, card)
     codes = torch.from_numpy(rng.integers(0, c, (16, ncols, m)).astype(np.uint8)).to(card)
     cb = torch.from_numpy(rng.standard_normal((m, c, d // m)).astype(np.float32)).to(card)
     cb = cb.to(torch.bfloat16)
@@ -126,7 +135,7 @@ def test_pq8_kernel_matches_plain_version(card, b, ncols, d, m, c, ag, alpha):
 def test_pq4_kernel_matches_plain_version(card, b, ncols, d, m, c, ag):
     """K3 against its plain version over nibble-packed codes."""
     rng = np.random.default_rng(b * m + 1)
-    q = _codes_queries(rng, b, d, card)
+    q = _scaled_queries(rng, b, d, card)
     packed = torch.from_numpy(rng.integers(0, 256, (16, ncols, m // 2)).astype(np.uint8)).to(card)
     cb = torch.from_numpy(rng.standard_normal((m, 16, d // m)).astype(np.float32)).to(card)
     cb = cb.to(torch.bfloat16)
@@ -153,6 +162,21 @@ def test_codes_kernels_raise_past_the_plan(card):
         cb = torch.zeros((98, c, 64), dtype=torch.bfloat16, device=card)
         with pytest.raises(ValueError, match="does not fit"):
             fn(q, codes, bias, cb, -1.0)
+
+
+@pytest.mark.cuda
+def test_gmin_kernel_raises_past_the_plan(card):
+    """K1 at a depth with no resident plan (D 6272) is refused on the card
+    for either store, never served by its plain version and never
+    counted; `_use_gmin` routes such depths to the chunked scan."""
+    q = torch.zeros((8, 6272), device=card)
+    bias = torch.zeros((16, 64), device=card)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros((16, 64, 6272), dtype=dtype, device=card)
+        before = gmin_scan.launches
+        with pytest.raises(ValueError, match="does not fit"):
+            gmin_scan.group_min_scores(q, x, bias, -1.0)
+        assert gmin_scan.launches == before
 
 
 @pytest.mark.cuda

@@ -226,26 +226,33 @@ def test_pq4_funnel_topk_matches_jax(metric, kernel, rescore, use_allow, opq):
     np.testing.assert_allclose(tt.numpy(), np.asarray(jt), rtol=1e-5, atol=1e-5)
 
 
-# D -> the resident tile's group columns (None: no plan, the tile does not
-# fit even at one column)
-_PLANS = {8: 8, 30: 8, 128: 8, 768: 8, 769: 4, 1024: 4, 1536: 4, 1600: 2, 3072: 2, 3136: 1,
-          6144: 1, 6208: 1, 6209: None, 6272: None, 8192: None}
+# D -> the resident tile's group columns at 16 live slices (None: no plan,
+# the tile does not fit even at one column)
+_PLANS = {8: 16, 30: 16, 128: 16, 384: 16, 392: 8, 768: 8, 769: 4, 1024: 4, 1536: 4, 1600: 2,
+          3072: 2, 3136: 1, 6144: 1, 6208: 1, 6209: None, 6272: None, 8192: None}
+
+
+def _tile_bytes(n, dp):
+    """Shared memory of a tile of n bf16 rows at depth dp and the query
+    ring: the widest tile (256 rows) keeps its bias beside them."""
+    return n * dp * 2 + tgmin.RING_BYTES + (4 * n if n == 256 else 0) + tgmin.SMEM_RESERVE
 
 
 @pytest.mark.parametrize("d", sorted(_PLANS))
 def test_codes_plan_fits_shared_memory(d):
-    """The largest SCG of 8, 4, 2, 1 whose bf16 tile (16 slices x SCG rows
-    x roundup(D, 64)) fits beside the query ring in a block's 227 KB."""
+    """K2/K3's plan is the shared resident plan: the largest SCG of 16, 8,
+    4, 2, 1 whose bf16 tile (16 slices x SCG rows x roundup(D, 64)) fits
+    beside the query ring in a block's 227 KB."""
     plan = tpqg.codes_plan(d)
+    assert plan == tgmin.resident_plan(d)
     if _PLANS[d] is None:
         assert plan is None
-        assert G * 1 * (-(-d // 64) * 64) * 2 + tpqg.RING_BYTES + tpqg.SMEM_RESERVE > 232_448
+        assert _tile_bytes(16, -(-d // 64) * 64) > 232_448
         return
-    scg, dp, smem = plan
-    assert (scg, dp % 64, dp - d) == (_PLANS[d], 0, dp - d) and 0 <= dp - d < 64
-    assert smem == G * scg * dp * 2 + tpqg.RING_BYTES + tpqg.SMEM_RESERVE <= 232_448
-    if scg < 8:  # twice the columns would not fit
-        assert G * 2 * scg * dp * 2 + tpqg.RING_BYTES + tpqg.SMEM_RESERVE > 232_448
+    assert (plan.slices, plan.scg, plan.dp % 64) == (G, _PLANS[d], 0) and 0 <= plan.dp - d < 64
+    assert plan.smem == _tile_bytes(G * plan.scg, plan.dp) <= 232_448
+    if plan.scg < 16:  # twice the columns would not fit
+        assert _tile_bytes(2 * G * plan.scg, plan.dp) > 232_448
 
 
 # (b, ncols, kk, d, m, c): both packages take their kernel on the first
@@ -317,7 +324,8 @@ def test_index_past_the_plan_answers_without_the_codes_kernels(tmp_path, monkeyp
     tidx = port()
     tidx.search_by_vectors(q, K)
     assert len(calls) == 1  # the kernel route at the real limit
-    monkeypatch.setattr(tpqg, "SMEM_LIMIT", G * 1 * 64 * 2 + tpqg.RING_BYTES + tpqg.SMEM_RESERVE - 1)
+    monkeypatch.setattr(tgmin, "SMEM_LIMIT",
+                        G * 1 * 64 * 2 + tgmin.RING_BYTES + tgmin.SMEM_RESERVE - 1)
     assert tpqg.codes_plan(D) is None
     for mod in (jpqg, jpq4):
         monkeypatch.setattr(mod, "_VMEM_BUDGET", 0)

@@ -21,7 +21,7 @@
 // sub-tile staged and folded into the running min in turn, which computes
 // the same scores (each is one dot product, summed in another order).
 //
-// Design: K1's tile loop (gmin_tile.cuh) with its depth-major layout (XT):
+// Design: the tile loop of gmin_tile.cuh with its depth-major store tile:
 // the stager copies runs of a [D, ncols] row into a [DK x BC] shared tile
 // (float4 loads when every run is 16-byte aligned) and the products read it
 // as a row_major B operand. So K4 keeps its layout's point, no transpose on
@@ -131,7 +131,7 @@ __global__ void __launch_bounds__(THREADS)
 layout_kernel(Store xs, const float* __restrict__ q, const float* __restrict__ bias,
               float* __restrict__ out, int64_t B, int64_t ncols, int64_t D, int g, float alpha,
               bool qvec4) {
-  gmin::gmin_tile<Store, true>(xs, q, bias, out, B, ncols, D, g, alpha, qvec4);
+  gmin::gmin_tile<Store>(xs, q, bias, out, B, ncols, D, g, alpha, qvec4);
 }
 
 }  // namespace

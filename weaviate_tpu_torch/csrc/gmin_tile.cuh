@@ -1,7 +1,7 @@
-// The group-min tile loop shared by the port's dense scan kernels (K1 in
-// gmin_scan.cu, K4 and K5 in gmin_layouts.cu). Each kernel differs only in
-// how it stages the store operand: K1 reads an f32 or bf16 store, K4 and K5
-// read a store laid out depth-major. The staging is a
+// The group-min tile loop of the profiler's layout kernels, K4 and K5 in
+// gmin_layouts.cu (K1, K1-bf16, K2 and K3 run the resident-tile scan of
+// gmin_resident.cuh). The two differ only in how they stage the store
+// operand, a store laid out depth-major in both. The staging is a
 // `Stager` object with one method,
 //
 //   __device__ void stage(__nv_bfloat16* dst, int g, int64_t c0, int64_t D,
@@ -9,12 +9,10 @@
 //
 // which fills dst with bf16 values of store slice g, columns c0 .. c0+BC,
 // depth d0 .. d0+dkp, and zeros past ncols or past the live depth dk (zeros
-// add nothing to a dot product). The loop's compile-time layout XT says how
-// dst is laid out: false (K1), [BC columns x LDS pitch], one column's
-// depth run per row, read as a col_major B operand; true (K4, K5), [DK
-// depth x LDX pitch], one depth's run of columns per row, read as a
-// row_major B operand (the layout of a [D, ncols] store, so a stager copies
-// contiguous runs and transposes nothing).
+// add nothing to a dot product). dst is laid out [DK depth x LDX pitch],
+// one depth's run of columns per row, read as a row_major B operand (the
+// layout of a [D, ncols] store, so a stager copies contiguous runs and
+// transposes nothing).
 //
 // The bias of the loop's slice g and output column col is read at
 // bias_offset(stager, g, col, ncols): row g of a [ag, ncols] bias by
@@ -52,8 +50,6 @@
 #include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace gmin {
 
 using namespace nvcuda;
@@ -70,7 +66,7 @@ constexpr int FQ = WQ / 16;
 constexpr int FC = WC / 16;
 constexpr int THREADS = 32 * WARPS_Q * WARPS_C;
 constexpr int LDS = DK + 8;       // bf16 row pitch of the operand tiles (wmma: multiple of 8)
-constexpr int LDX = BC + 8;       // bf16 row pitch of a depth-major operand tile (XT)
+constexpr int LDX = BC + 8;       // bf16 row pitch of the depth-major store tile
 constexpr int LDB = BC + 4;       // f32 row pitch of the bias / output tiles (wmma: multiple of 4)
 
 constexpr size_t Q_TILE_BYTES = size_t(BQ) * LDS * sizeof(__nv_bfloat16);
@@ -122,7 +118,7 @@ __device__ __forceinline__ int64_t bias_offset(const Stager&, int g, int64_t col
   return int64_t(g) * ncols + col;
 }
 
-template <class Stager, bool XT = false>
+template <class Stager>
 __device__ __forceinline__ void gmin_tile(const Stager& xs, const float* __restrict__ q,
                                           const float* __restrict__ bias, float* __restrict__ out,
                                           int64_t B, int64_t ncols, int64_t D, int ag, float alpha,
@@ -171,19 +167,13 @@ __device__ __forceinline__ void gmin_tile(const Stager& xs, const float* __restr
       __syncthreads();
       for (int kk = 0; kk < dkp; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[FQ];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       std::conditional_t<XT, wmma::row_major, wmma::col_major>>
-            bm[FC];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bm[FC];
 #pragma unroll
         for (int i = 0; i < FQ; ++i)
           wmma::load_matrix_sync(a[i], sq + (wq * WQ + i * 16) * LDS + kk, LDS);
 #pragma unroll
-        for (int j = 0; j < FC; ++j) {
-          if constexpr (XT)  // row-major B = the depth-major x tile as it is
-            wmma::load_matrix_sync(bm[j], sx + kk * LDX + wc * WC + j * 16, LDX);
-          else  // col-major B = the column-major x tile, transposed
-            wmma::load_matrix_sync(bm[j], sx + (wc * WC + j * 16) * LDS + kk, LDS);
-        }
+        for (int j = 0; j < FC; ++j)  // row-major B = the depth-major x tile as it is
+          wmma::load_matrix_sync(bm[j], sx + kk * LDX + wc * WC + j * 16, LDX);
 #pragma unroll
         for (int i = 0; i < FQ; ++i)
 #pragma unroll

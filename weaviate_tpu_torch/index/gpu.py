@@ -1385,12 +1385,17 @@ class GpuVectorIndex(VectorIndex):
     def _use_gmin(self, snap: IndexSnapshot, b: int, k: int) -> bool:
         """The routing rules of the JAX package: the exactTopK opt-out, the
         non-matmul metrics, capacities under 16384 and batches under 8
-        rows take the chunked exact scan."""
+        rows take the chunked exact scan. So does a depth whose resident
+        store tile has no plan (`gmin_scan.resident_plan`: D > 6208), the
+        port's counterpart of the reference's VMEM plan (`fits_vmem`),
+        which already refuses an f32 store from about D 722."""
         if self.config.exact_topk:
             return False
         if self.metric not in vi.MATMUL_DISTANCES:
             return False
         if snap.capacity < _MIN_CAPACITY or b < 8:
+            return False
+        if gmin_scan.resident_plan(snap.dim) is None:
             return False
         return self._gmin_rg(k, snap.capacity) > 0
 

@@ -18,16 +18,23 @@ Dead slots (tombstoned / beyond n / filtered out) carry bias=+inf.
 (`csrc/gmin_scan.cu`) for tensors on the card and runs its plain torch
 version, `group_min_scores_reference`, for tensors on the CPU. The store
 is f32 (the uncompressed index) or bf16 (the rescore copy of the
-PQ-compressed index); the kernel has one instantiation for each. Around
-it, plain torch ops do what the JAX package left to XLA: the group
-selection is an exact `torch.topk` (the TPU used approx_min_k at recall
-target 0.99), then a block gather and the exact f32 rescore, in query
-blocks that bound the gather (`topk.query_block`).
+PQ-compressed index); the kernel has one tile filler for each. It keeps a
+store tile of S slices x SCG group columns resident in shared memory for
+its whole life (`csrc/gmin_resident.cuh`, shared with K2 and K3), and
+`resident_plan` sizes that tile for all four kernels: depths past it (D >
+6208) have no plan, and the index routes them to its chunked scan (the
+reference's counterpart is its VMEM plan, `fits_vmem`, which refuses an
+f32 store from about D 722 at 16 live slices). Around the kernel, plain
+torch ops do what the JAX package left to XLA: the group selection is an
+exact `torch.topk` (the TPU used approx_min_k at recall target 0.99), then
+a block gather and the exact f32 rescore, in query blocks that bound the
+gather (`topk.query_block`).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -43,6 +50,32 @@ G = 16  # group size (store slices)
 # a run reads it to show that its searches went through the kernel
 launches = 0
 
+# The resident-tile plan of K1, K1-bf16, K2 and K3; csrc/gmin_resident.cuh
+# checks the same numbers.
+SMEM_LIMIT = 232_448   # bytes of shared memory one block may use on sm_90
+RING_BYTES = 32_768    # the ring of bf16 query tiles streamed past the store tile
+RING_STAGES = 4        # ... in this many stages, two per consumer warpgroup
+SMEM_RESERVE = 1_024   # mbarriers and the 1024-byte alignment of the tiles
+SMEM_BIAS_WIDTH = 256  # tiles this wide keep their bias in shared memory (4 bytes a row)
+DEPTH_STEP = 64        # the tiles' depth is padded to a multiple of 64 (128 bytes)
+QUERY_ROWS = 128       # the bf16 query scratch is padded to a multiple of 128 rows
+WIDTHS = (256, 128, 64, 32, 16)  # tile rows N = S * SCG: the wgmma widths
+
+
+class ResidentPlan(NamedTuple):
+    """One resident store tile: `slices` (S, the least power of two >= the
+    live slices) x `scg` group columns of bf16 rows padded to depth `dp`,
+    `smem` bytes of shared memory with the query ring."""
+    slices: int
+    scg: int
+    dp: int
+    smem: int
+
+    @property
+    def width(self) -> int:
+        return self.slices * self.scg
+
+
 _lib = None
 
 
@@ -52,7 +85,7 @@ def _gmin_lib():
         lib = _kernels.load("gmin_scan")
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         for fn in (lib.gmin_scan_launch, lib.gmin_scan_bf16_launch):
-            fn.argtypes = [vp, vp, vp, vp, ll, ll, ll, ci, ctypes.c_float, ci, ci, vp]
+            fn.argtypes = [vp, vp, vp, vp, vp, ll, ll, ll, ci, ctypes.c_float, ci, ci, ci, vp]
             fn.restype = ctypes.c_int
         lib.gmin_scan_error_string.argtypes = [ctypes.c_int]
         lib.gmin_scan_error_string.restype = ctypes.c_char_p
@@ -62,6 +95,43 @@ def _gmin_lib():
 
 def _live_slices(active_g: int, g: int) -> int:
     return max(1, min(int(active_g), g))
+
+
+def tile_slices(active_g: int) -> int:
+    """S: the least power of two >= active_g live slices (1 .. 16)."""
+    s = 1
+    while s < min(max(int(active_g), 1), G):
+        s *= 2
+    return s
+
+
+def resident_plan(d: int, active_g: int = G) -> Optional[ResidentPlan]:
+    """The resident-tile plan for depth d and active_g live slices, or None
+    when no tile fits (d > 6208). The tile holds S = the least power of two
+    >= active_g slices, at most 16, and N = S * SCG rows of bf16 padded to
+    dp = roundup(d, 64): N is the widest of WIDTHS whose tile fits in
+    shared memory beside the query ring."""
+    dp = -(-d // DEPTH_STEP) * DEPTH_STEP
+    s = tile_slices(active_g)
+    for n in WIDTHS:
+        smem = (n * dp * 2 + RING_BYTES + (4 * n if n >= SMEM_BIAS_WIDTH else 0)
+                + SMEM_RESERVE)
+        if smem <= SMEM_LIMIT:
+            return ResidentPlan(s, n // s, dp, smem)
+    return None
+
+
+def query_scratch(q: torch.Tensor, plan: ResidentPlan) -> torch.Tensor:
+    """The [roundup(B, 128), dp] bf16 scratch a resident-tile kernel rounds
+    the queries into (zeros past B and D), so every TMA row is aligned."""
+    return torch.empty((-(-q.shape[0] // QUERY_ROWS) * QUERY_ROWS, plan.dp),
+                       dtype=torch.bfloat16, device=q.device)
+
+
+def no_plan_error(d: int) -> ValueError:
+    return ValueError(f"D={d}: the resident store tile does not fit in shared memory even "
+                      "at one group column per block (the routers send this depth to "
+                      "another scan)")
 
 
 def group_min_scores_reference(q: torch.Tensor, store3: torch.Tensor,
@@ -89,8 +159,9 @@ def group_min_scores(q: torch.Tensor, store3: torch.Tensor, bias2: torch.Tensor,
     in order, so slices past ceil(n/ncols) hold no live slot and are never
     read).
 
-    On a CUDA tensor this launches the Hopper kernel and raises if the
-    launch fails; on a CPU tensor it runs group_min_scores_reference."""
+    On a CUDA tensor this launches the Hopper kernel with
+    resident_plan(D, active_g) and raises if D has no plan or the launch
+    fails; on a CPU tensor it runs group_min_scores_reference."""
     global launches
     if q.device.type == "cpu":
         return group_min_scores_reference(q, store3, bias2, alpha, active_g)
@@ -109,17 +180,22 @@ def group_min_scores(q: torch.Tensor, store3: torch.Tensor, bias2: torch.Tensor,
                              f"tensor on {q.device}")
     if g > G:
         raise ValueError(f"the kernel takes at most {G} store slices, got {g}")
+    ag = _live_slices(active_g, g)
+    plan = resident_plan(d, ag)
+    if plan is None:
+        raise no_plan_error(d)
     out = torch.empty((b, ncols), dtype=torch.float32, device=q.device)
     if b == 0 or ncols == 0:
         return out
+    q_bf16 = query_scratch(q, plan)
     qvec4 = d % 4 == 0 and q.data_ptr() % 16 == 0
     lib = _gmin_lib()
     if store3.dtype == torch.bfloat16:
         launch, svec = lib.gmin_scan_bf16_launch, d % 8 == 0 and store3.data_ptr() % 16 == 0
     else:
         launch, svec = lib.gmin_scan_launch, d % 4 == 0 and store3.data_ptr() % 16 == 0
-    rc = launch(q.data_ptr(), store3.data_ptr(), bias2.data_ptr(), out.data_ptr(), b, ncols,
-                d, _live_slices(active_g, g), float(alpha), int(qvec4), int(svec),
+    rc = launch(q.data_ptr(), store3.data_ptr(), bias2.data_ptr(), q_bf16.data_ptr(),
+                out.data_ptr(), b, ncols, d, ag, float(alpha), plan.scg, int(qvec4), int(svec),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("gmin_scan kernel launch failed: "

@@ -21,11 +21,13 @@ for the matmul metrics.
 `pq_group_min_scores` launches the hand-written Hopper kernel K2
 (`csrc/pq_gmin.cu`) for tensors on the card and runs its plain torch
 version, `pq_group_min_scores_reference`, for tensors on the CPU. The
-kernel keeps a decoded store tile of 16 slices x SCG group columns
-resident in shared memory for its whole life; `codes_plan` picks SCG for
-the depth, and shapes whose tile does not fit even at SCG 1 (D > 6208)
-take the reconstruction scan through `eligible_rg`, as the reference
-refuses its Pallas kernel past VMEM (`fits_vmem_pq`). Around
+kernel keeps a decoded store tile of S live slices x SCG group columns
+resident in shared memory for its whole life (K1's resident-tile scan,
+`csrc/gmin_resident.cuh`). `codes_plan` sizes that tile, as
+`gmin_scan.resident_plan` does for K1, and shapes whose tile does not fit
+even at one column (D > 6208) take the reconstruction scan through
+`eligible_rg`, as the reference refuses its Pallas kernel past VMEM
+(`fits_vmem_pq`). Around
 it, plain torch ops: an exact `torch.topk` group selection (the TPU used
 approx_min_k) and the block-gathered exact-ADC rescore. The rescore runs
 in query blocks that keep each [rows, RG*16, D] f32 gather near 2 GB
@@ -42,35 +44,21 @@ import torch
 
 from weaviate_tpu_torch.entities import vectorindex as vi
 from weaviate_tpu_torch.ops import _kernels
-from weaviate_tpu_torch.ops.gmin_scan import G, _live_slices, scan_bias
+from weaviate_tpu_torch.ops.gmin_scan import (G, ResidentPlan, _live_slices, no_plan_error,
+                                              query_scratch, resident_plan, scan_bias)
 from weaviate_tpu_torch.ops.topk import (pack_topk, query_block, rescore_distances,
                                          smallest_k, translate_pack)
 
 # launches of the K2 kernel by pq_group_min_scores (never the CPU path)
 launches = 0
 
-# The K2/K3 shared-memory plan; csrc/pq_gmin.cu checks the same numbers.
-SMEM_LIMIT = 232_448   # bytes of shared memory one block may use on sm_90
-RING_BYTES = 32_768    # the ring of bf16 query tiles streamed past the store tile
-RING_STAGES = 4        # ... in this many stages
-SMEM_RESERVE = 1_024   # mbarriers and the 1024-byte alignment of the tiles
-DEPTH_STEP = 64        # the tiles' depth is padded to a multiple of 64 (128 bytes)
-QUERY_ROWS = 128       # the bf16 query scratch is padded to a multiple of 128 rows
-
 _lib = None
 
 
-def codes_plan(d: int) -> Optional[tuple[int, int, int]]:
-    """The resident-tile plan of K2/K3 for depth d -> (scg, dp, smem
-    bytes), or None when even SCG 1 does not fit. The tile holds 16 slices
-    x scg group columns of bf16 rows padded to dp = roundup(d, 64); scg is
-    the largest of 8, 4, 2, 1 whose tile, with the query ring, fits."""
-    dp = -(-d // DEPTH_STEP) * DEPTH_STEP
-    for scg in (8, 4, 2, 1):
-        smem = G * scg * dp * 2 + RING_BYTES + SMEM_RESERVE
-        if smem <= SMEM_LIMIT:
-            return scg, dp, smem
-    return None
+def codes_plan(d: int, active_g: int = G) -> Optional[ResidentPlan]:
+    """The resident-tile plan of K2/K3 for depth d: K1's
+    (`gmin_scan.resident_plan`), None when no tile fits."""
+    return resident_plan(d, active_g)
 
 
 def codes_lib():
@@ -145,22 +133,19 @@ def launch_codes(fn_name: str, q, codes3, bias2, codebook, alpha, active_g, b, d
     shape has no plan (the routers send such shapes elsewhere) or the
     launch fails. The kernel first rounds q into a zero-padded bf16
     scratch, allocated here."""
-    plan = codes_plan(d)
+    ag = _live_slices(active_g, g)
+    plan = codes_plan(d, ag)
     if plan is None:
-        raise ValueError(f"D={d}: the resident store tile does not fit in shared memory "
-                         "even at one group column (eligible_rg / pq4.use_kernel route this "
-                         "shape to the reconstruction or byte-LUT scan)")
-    scg, dp, _ = plan
+        raise no_plan_error(d)
     out = torch.empty((b, ncols), dtype=torch.float32, device=q.device)
     if b == 0 or ncols == 0:
         return out
-    bp = -(-b // QUERY_ROWS) * QUERY_ROWS
-    q_bf16 = torch.empty((bp, dp), dtype=torch.bfloat16, device=q.device)
+    q_bf16 = query_scratch(q, plan)
     lib = codes_lib()
     rc = getattr(lib, fn_name)(
         q.data_ptr(), codes3.data_ptr(), bias2.data_ptr(), codebook.data_ptr(),
-        q_bf16.data_ptr(), out.data_ptr(), b, ncols, d, m, c, _live_slices(active_g, g),
-        float(alpha), scg, int(d % 4 == 0 and q.data_ptr() % 16 == 0),
+        q_bf16.data_ptr(), out.data_ptr(), b, ncols, d, m, c, ag,
+        float(alpha), plan.scg, int(d % 4 == 0 and q.data_ptr() % 16 == 0),
         int(codebook.data_ptr() % 16 == 0), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed: " + lib.pq_gmin_error_string(rc).decode())
