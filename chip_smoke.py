@@ -36,7 +36,9 @@ C. the stage profiler (`weaviate_tpu_torch.tools.profile_gmin`) at its
    default shape, N = 2^20 x 128 f32 gaussian, B = 16384: its component,
    gather and loop (ITERS 8) modes in-process, after K4 (`nt_scores`) and
    K5 (`c4_scores`, gc 2 and 4) are held against their plain versions and
-   against K1 on the same data (dead slots and 100 whole dead groups).
+   against K1 on the same data (dead slots and 100 whole dead groups); all
+   three run K1's resident-tile scan with a depth-major filler, so they are
+   timed beside K1 on the untransposed store at the same shape.
 
 Phases, in order; any failure raises and the script exits non-zero:
 1. card: name and power limit (nvidia-smi), compute capability 9.0;
@@ -56,7 +58,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    library's entry point since the wrapper takes only the plan;
 5. C, after the B indexes are freed: the layout kernels' checks, the three
    profiler modes with their launch counts (each count set to 0 just
-   before the modes run and read just after), the layout kernels' timings;
+   before the modes run and read just after), K1's time on the same store
+   and shape, then the layout kernels' timings and their ratio to it;
 6. the card line, one JSON line of per-kernel numbers, the result line.
 
 Each phase also names itself on stderr as it starts. A watchdog stops the
@@ -839,11 +842,12 @@ def profiler_phase(dev, card, seed) -> list[dict]:
     # kernel name -> (wrapper, plain version, layout of (store3t, bias2))
     kernels = {"nt_scores": (pg.nt_scores, pg.nt_scores_reference,
                              lambda b2: (store3t, b2))}
+    iw = pg.INTERLEAVE_WIDTH
     for gc in (2, 4):
         kernels[f"c4_scores_gc{gc}"] = (
-            lambda q, s4, b4, a, gc=gc: pg.c4_scores(q, s4, b4, a, pg.SCG, gc),
-            lambda q, s4, b4, a, gc=gc: pg.c4_scores_reference(q, s4, b4, a, pg.SCG, gc),
-            lambda b2, gc=gc: pg.interleave(store3t, b2, gc, pg.SCG))
+            lambda q, s4, b4, a, gc=gc: pg.c4_scores(q, s4, b4, a, iw, gc),
+            lambda q, s4, b4, a, gc=gc: pg.c4_scores_reference(q, s4, b4, a, iw, gc),
+            lambda b2, gc=gc: pg.interleave(store3t, b2, gc, iw))
     max_err = dict.fromkeys(kernels, 0.0)
     for b in (SLICE, BATCH):
         q_b = d.q[:b]
@@ -892,8 +896,13 @@ def profiler_phase(dev, card, seed) -> list[dict]:
             raise AssertionError(f"{name}: {n} launches in the profiler's modes, want "
                                  f"{1 + pg.REPS} (warm-up + REPS)")
 
-    # timings, l2, beside K1's library yardstick and the bound
+    # timings, l2, beside K1 on the same store and shape (K4 and K5 run
+    # K1's tile and products, only their fill reads another layout), K1's
+    # library yardstick and the bound
     bias2 = d.bias2
+    k1_ms = cuda_ms(lambda: gmin_scan.group_min_scores(d.q, d.store3, bias2, -2.0), 3)
+    log(f"[{card}] C K1 gmin_scan f32 on store3 B={BATCH} ncols={ncols} ag={G} D={pg.D}"
+        f"{plan_note(pg.layout_plan(pg.D, G))}: {k1_ms:.3f} ms")
     store_bf = d.store.bfloat16()
     rows = []
     for name, (kernel, plain, layout) in kernels.items():
@@ -902,7 +911,9 @@ def profiler_phase(dev, card, seed) -> list[dict]:
             name, card, lambda q, b, a, g: kernel(q, x, b, a),
             lambda q, b, a, g: plain(q, x, b, a),
             lambda q: torch.matmul(q.bfloat16(), store_bf.T), d.q, bias, ncols, G, pg.D,
-            4.0 * pg.D, 0.0, f"bf16 matmul [Bx{pg.D}]x[{pg.D}x{PROF_N}]")
+            4.0 * pg.D, 0.0, f"bf16 matmul [Bx{pg.D}]x[{pg.D}x{PROF_N}]",
+            detail=plan_note(pg.layout_plan(pg.D, G)))
+        log(f"[{card}] {name} / K1 on the same store: {row['ms'] / k1_ms:.3f}")
         del x, bias
         torch.cuda.empty_cache()
         line = 118 if name == "nt_scores" else 147

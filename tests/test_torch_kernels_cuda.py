@@ -14,7 +14,7 @@ import torch
 
 from weaviate_tpu_torch.entities import vectorindex as vi
 from weaviate_tpu_torch.index import gpu, new_vector_index
-from weaviate_tpu_torch.ops import gmin_scan, pq4, pq_gmin
+from weaviate_tpu_torch.ops import _kernels, gmin_scan, pq4, pq_gmin
 from weaviate_tpu_torch.storage.bitmap import Bitmap
 from weaviate_tpu_torch.tools import profile_gmin
 
@@ -253,6 +253,7 @@ def test_nt_kernel_matches_plain_version(card, b, ncols, d, g, alpha):
     assert torch.equal(torch.isinf(got), torch.isinf(want))
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
     k1 = gmin_scan.group_min_scores(q, x, bias, alpha, active_g=g)
+    assert torch.equal(torch.isinf(got), torch.isinf(k1))
     torch.testing.assert_close(got, k1, rtol=1e-4, atol=1e-3)
 
 
@@ -278,7 +279,89 @@ def test_c4_kernel_matches_plain_version(card, b, ncols, d, scg, gc):
     assert torch.equal(torch.isinf(got), torch.isinf(want))
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
     k1 = gmin_scan.group_min_scores(q, x, bias, -2.0)
+    assert torch.equal(torch.isinf(got), torch.isinf(k1))
     torch.testing.assert_close(got, k1, rtol=1e-4, atol=1e-3)
+
+
+# (kind, B, ncols, D, groups, gc, iw): the N 128 plan (D 500, bias in
+# registers); tiles of S below 16 (K4 g 3 at SCG 64, K5 nslice * gc 8 at
+# SCG 32); interleave widths under the tile's SCG 16 (iw 4 on the float4
+# path, iw 2 on the element path); SCG 2 and 1 (D 3072, 6208: the element
+# path, the plan's limit)
+_LAYOUT_PLAN_SHAPES = [("nt", 40, 1000, 500, 16, 1, 0), ("c4", 40, 1024, 500, 16, 2, 64),
+                       ("nt", 33, 1000, 128, 3, 1, 0), ("c4", 65, 1024, 64, 8, 2, 128),
+                       ("c4", 17, 960, 129, 8, 4, 64), ("c4", 65, 1024, 128, 16, 4, 4),
+                       ("c4", 9, 1000, 128, 16, 2, 2), ("nt", 8, 257, 3072, 16, 1, 0),
+                       ("nt", 8, 101, 6208, 16, 1, 0), ("c4", 8, 128, 6208, 16, 4, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,b,ncols,d,groups,gc,iw", _LAYOUT_PLAN_SHAPES)
+def test_layout_kernels_on_other_plans(card, kind, b, ncols, d, groups, gc, iw):
+    """K4 and K5 on plans other than the profiler's: against their plain
+    versions and against K1 on the untransposed store, the same tolerance
+    and the same +inf groups."""
+    rng = np.random.default_rng(b * d + groups + iw)
+    q = _scaled_queries(rng, b, d, card)
+    x = torch.from_numpy(rng.standard_normal((groups, ncols, d)).astype(np.float32)).to(card)
+    bias = _dead_bias(rng, ncols, card)[:groups].contiguous()
+    xt = profile_gmin.transpose_store(x)
+    if kind == "nt":
+        before = profile_gmin.nt_launches
+        got = profile_gmin.nt_scores(q, xt, bias, -2.0)
+        torch.cuda.synchronize()
+        assert profile_gmin.nt_launches == before + 1
+        want = profile_gmin.nt_scores_reference(q, xt, bias, -2.0)
+    else:
+        s4, b4 = profile_gmin.interleave(xt, bias, gc, iw)
+        before = profile_gmin.c4_launches.get(gc, 0)
+        got = profile_gmin.c4_scores(q, s4, b4, -2.0, iw, gc)
+        torch.cuda.synchronize()
+        assert profile_gmin.c4_launches[gc] == before + 1
+        want = profile_gmin.c4_scores_reference(q, s4, b4, -2.0, iw, gc)
+    k1 = gmin_scan.group_min_scores(q, x, bias, -2.0)
+    for ref in (want, k1):
+        assert torch.equal(torch.isinf(got), torch.isinf(ref))
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_layout_kernels_raise_past_the_plan(card):
+    """K4 and K5 at a depth with no resident plan (D 6272) raise before
+    any launch, never served by a plain version and never counted."""
+    q = torch.zeros((8, 6272), device=card)
+    before = (profile_gmin.nt_launches, dict(profile_gmin.c4_launches))
+    with pytest.raises(ValueError, match="does not fit"):
+        profile_gmin.nt_scores(q, torch.zeros((16, 6272, 64), device=card),
+                               torch.zeros((16, 64), device=card), -1.0)
+    with pytest.raises(ValueError, match="does not fit"):
+        profile_gmin.c4_scores(q, torch.zeros((8, 6272, 128), device=card),
+                               torch.zeros((8, 128), device=card), -1.0, 64, 2)
+    assert (profile_gmin.nt_launches, profile_gmin.c4_launches) == before
+
+
+@pytest.mark.cuda
+def test_layout_kernels_raise_when_the_launch_or_the_build_fails(card, monkeypatch, tmp_path):
+    """No fallback: a launch the kernel refuses (a tile of 512 rows, no
+    wgmma width) raises and is not counted, and so does a source that does
+    not build."""
+    q = torch.zeros((8, 128), device=card)
+    xt = torch.zeros((16, 128, 64), device=card)
+    bias = torch.zeros((16, 64), device=card)
+    bad = gmin_scan.resident_plan(128, 16)._replace(scg=32)
+    monkeypatch.setattr(profile_gmin, "layout_plan", lambda d, groups: bad)
+    before = profile_gmin.nt_launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        profile_gmin.nt_scores(q, xt, bias, -1.0)
+    assert profile_gmin.nt_launches == before
+    (tmp_path / "gmin_layouts.cu").write_text("this is not CUDA C++\n")
+    monkeypatch.setattr(_kernels, "CSRC", tmp_path)
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_kernels, "_libs", {})
+    monkeypatch.setattr(profile_gmin, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        profile_gmin.nt_scores(q, xt, bias, -1.0)
+    assert profile_gmin.nt_launches == before
 
 
 @pytest.mark.cuda

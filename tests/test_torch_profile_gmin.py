@@ -137,6 +137,53 @@ def test_plain_versions_match_group_min_scores(metric):
         _assert_scores(tprof.c4_scores_reference(_t(q), s4, b4, alpha, scg, gc).numpy(), want)
 
 
+def _c4_column(g, c, iw, gc):
+    """K5's column map as csrc/gmin_layouts.cu's `Interleave::col` computes
+    it: group g's column c within its store slice's depth row."""
+    blk = c // iw
+    return (blk * gc + g % gc) * iw + (c - blk * iw)
+
+
+@pytest.mark.parametrize("ncols,iw,gc", [(1024, 64, 2), (320, 64, 4), (4096, 128, 4),
+                                         (64, 4, 4)])
+def test_c4_filler_map_reads_the_interleave(ncols, iw, gc):
+    """The addresses K5's filler reads, x + (slice(g) * D + d) * width +
+    col(g, c), and its bias_index, slice(g) * width + col(g, c) (slice(g)
+    = g // gc, width = gc * ncols), hold every member's elements of
+    `interleave`'s layout."""
+    rng = np.random.default_rng(ncols + iw + gc)
+    d = 3
+    store3t = torch.from_numpy(rng.standard_normal((G, d, ncols)).astype(np.float32))
+    bias2 = torch.from_numpy(rng.standard_normal((G, ncols)).astype(np.float32))
+    s4, b4 = tprof.interleave(store3t, bias2, gc, iw)
+    x, bias, width = s4.numpy().ravel(), b4.numpy().ravel(), gc * ncols
+    c = np.arange(ncols)
+    for g in range(G):
+        col = _c4_column(g, c, iw, gc)
+        for dd in range(d):
+            np.testing.assert_array_equal(x[((g // gc) * d + dd) * width + col],
+                                          store3t[g, dd].numpy())
+        np.testing.assert_array_equal(bias[(g // gc) * width + col], bias2[g].numpy())
+
+
+@pytest.mark.parametrize("groups", [3, 8, 16])
+def test_layout_wrappers_take_k1s_plan(groups):
+    """K4 and K5 launch K1's resident-tile plan for the store's groups:
+    S = pow2ceil(groups), the widest tile that fits."""
+    for d in (30, 128, 500, 3072, 6208):
+        assert tprof.layout_plan(d, groups) == tgmin.resident_plan(d, groups)
+    if groups == 3:
+        assert tprof.layout_plan(128, 3) == tgmin.ResidentPlan(4, 64, 128, 100352)
+
+
+def test_layout_wrappers_have_no_plan_past_the_tile():
+    """Past D 6208 no store tile fits; the wrappers raise before a launch
+    (the reference's layouts have no such limit)."""
+    assert tgmin.resident_plan(6272, 16) is None
+    with pytest.raises(ValueError, match="does not fit"):
+        tprof.layout_plan(6272, 16)
+
+
 def test_layout_wrappers_reject_other_devices():
     meta = torch.device("meta")
     q = torch.zeros((B, D), device=meta)
@@ -173,3 +220,11 @@ def test_profiler_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tprof.main(["--mode", "component", "32768", "64"])
+
+
+def test_kernel_timer_needs_a_card(monkeypatch):
+    """tools/time_kernels.py measures only on the card: without one it
+    exits non-zero and times nothing."""
+    from weaviate_tpu_torch.tools import time_kernels
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert time_kernels.main(["--checkout", str(ROOT)]) == 1

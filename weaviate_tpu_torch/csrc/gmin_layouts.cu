@@ -13,20 +13,31 @@
 // accumulated in f32. K5's interleave (profile_gmin.interleave): member t of
 // slice si is group g = si*gc + t, and its column c lies at physical column
 //
-//     (c / scg) * gc * scg + t * scg + (c % scg)
+//     (c / iw) * gc * iw + t * iw + (c % iw)
 //
-// of store4[si] and of bias4[si], for an interleave width scg that divides
-// ncols. The reference runs each slice as one [qb, D] @ [D, gc*scg] product
-// and a min across the gc column blocks; here each member's columns are a
-// sub-tile staged and folded into the running min in turn, which computes
-// the same scores (each is one dot product, summed in another order).
+// of store4[si] and of bias4[si], for an interleave width iw that divides
+// ncols.
 //
-// Design: the tile loop of gmin_tile.cuh with its depth-major store tile:
-// the stager copies runs of a [D, ncols] row into a [DK x BC] shared tile
-// (float4 loads when every run is 16-byte aligned) and the products read it
-// as a row_major B operand. So K4 keeps its layout's point, no transpose on
-// the way in; K5 is the same stager with the interleave's column map. Ragged
-// query and column edges are masked in the loop; offsets are 64-bit.
+// Design: the resident-tile scan of gmin_resident.cuh, the one K1-K3 run,
+// with a depth-major filler. A block fills its tile of S slices x SCG
+// group columns once, as bf16 rows n = g * SCG + c in the 128B-swizzled
+// K-major layout, and streams every query past it; so K4 and K5 do K1's
+// products on K1's tile in wgmma's order, and only the fill's addresses
+// differ. The store lies the other way round from the tile (columns
+// contiguous, depth strided), so the filler transposes in registers: a
+// thread keeps one run of 4 neighbouring columns of one slice, loads it as
+// a float4 at 8 depths in a row (a warp's lanes read neighbouring runs, so
+// the loads coalesce), packs the 8 x 4 values into four 16-byte chunks of
+// 8 bf16 (one per column) and stores each at its row. It keeps two such
+// depth chunks' loads in flight, and computes its column's address (for
+// K5, through the interleave's map) once, not once per element. Where a
+// run is not four aligned floats (ncols % 4 != 0, an unaligned base, an
+// interleave width off 4, or SCG < 4) a thread keeps one column instead
+// and loads it element by element, four depth chunks in flight. K5's bias
+// stays in its interleaved layout: the filler's bias_index maps it, so no
+// torch op reorders it in front of the launch. The tile plan is K1's
+// (ops/gmin_scan.resident_plan, for the store's slice count): none past D
+// = 6208, where the wrappers raise.
 //
 // Bound on this card at the profiler's shape (B = 16384, n = 2^20 so ncols
 // = 65536, G = 16, D = 128): 2 * B * G * ncols * D = 4.4e12 operations ->
@@ -34,139 +45,168 @@
 // the [B, ncols] f32 output 4 GiB) -> 1.35 ms at 3.35 TB/s: bound by the
 // tensor cores, as K1.
 
-#include "gmin_tile.cuh"
+#include "gmin_resident.cuh"
 
 namespace {
 
-using gmin::BC;
-using gmin::LDX;
-using gmin::THREADS;
-
-// Stage depth rows d0 .. d0+dkp of a row-major [D, width] f32 slice, output
-// columns c0 .. c0+BC, into dst [DK x LDX] as bf16. Column c of the output
-// reads physical column map(c); rows past the live dk and columns past
-// ncols read as zero. vec: every 4-column run starting at a multiple of 4
-// is 4 contiguous, 16-byte aligned floats. Each thread keeps one column (or
-// 4-column run) and steps down the depth, so the column map is computed
-// once per call, not once per element.
-template <class ColMap>
-__device__ __forceinline__ void stage_depth_major(__nv_bfloat16* dst, const float* __restrict__ src,
-                                                  int64_t width, int64_t ncols, int64_t c0,
-                                                  int64_t d0, int dk, int dkp, bool vec,
-                                                  const ColMap& map) {
-  if (vec) {
-    constexpr int C4 = BC / 4;
-    static_assert(THREADS % C4 == 0, "a thread's 4-column run is the same at every depth");
-    const int c = (threadIdx.x % C4) << 2;
-    const bool live = c0 + c < ncols;
-    const float* col = src + d0 * width + (live ? map(c0 + c) : 0);
-    for (int k = threadIdx.x / C4; k < dkp; k += THREADS / C4) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k < dk && live) v = *reinterpret_cast<const float4*>(col + k * width);
-      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(dst + k * LDX + c);
-      p[0] = __floats2bfloat162_rn(v.x, v.y);
-      p[1] = __floats2bfloat162_rn(v.z, v.w);
-    }
-  } else {
-    static_assert(THREADS % BC == 0, "a thread's column is the same at every depth");
-    const int c = threadIdx.x % BC;
-    const bool live = c0 + c < ncols;
-    const float* col = src + d0 * width + (live ? map(c0 + c) : 0);
-    for (int k = threadIdx.x / BC; k < dkp; k += THREADS / BC)
-      dst[k * LDX + c] = __float2bfloat16_rn((k < dk && live) ? col[k * width] : 0.f);
-  }
-}
-
-struct Identity {
-  __device__ __forceinline__ int64_t operator()(int64_t col) const { return col; }
+// K4's columns: group column c of slice g is column c of store slice g.
+struct Columns {
+  __device__ __forceinline__ int slice(int g) const { return g; }
+  __device__ __forceinline__ int64_t col(int, int64_t c) const { return c; }
 };
 
-// K4: store3t [G, D, ncols] f32
-struct TransposedStore {
-  const float* x;
-  int64_t ncols;
-  bool vec;  // ncols % 4 == 0 and a 16-byte aligned base
-  __device__ __forceinline__ void stage(__nv_bfloat16* dst, int g, int64_t c0, int64_t D,
-                                        int64_t d0, int dk, int dkp) const {
-    stage_depth_major(dst, x + int64_t(g) * D * ncols, ncols, ncols, c0, d0, dk, dkp, vec,
-                      Identity{});
-  }
-};
-
-// member t's column map of K5's interleave
+// K5's interleave: group g is member g % gc of store slice g / gc, and its
+// column c lies at (c / iw) * gc * iw + (g % gc) * iw + c % iw.
 struct Interleave {
-  int64_t scg;
+  int64_t iw;
   int gc;
-  int t;
-  __device__ __forceinline__ int64_t operator()(int64_t col) const {
-    const int64_t tile = col / scg;
-    return (tile * gc + t) * scg + (col - tile * scg);
+  __device__ __forceinline__ int slice(int g) const { return g / gc; }
+  __device__ __forceinline__ int64_t col(int g, int64_t c) const {
+    const int64_t blk = c / iw;
+    return (blk * gc + g % gc) * iw + (c - blk * iw);
   }
 };
 
-// K5: store4 [G/gc, D, gc*ncols] f32; the loop's group g is member g % gc
-// of slice g / gc
-struct InterleavedStore {
+__device__ __forceinline__ float component(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// 8 depths of 4 columns, packed as one 16-byte chunk of 8 bf16 per column
+struct Chunks4 {
+  uint4 c[4];
+};
+
+// Walk depth chunks j0, j0 + jstep, .. < k8n, U at a time: load all U,
+// then store each, so U chunks' loads are in flight. load(j) past k8n
+// reads no memory (its depth is past D) and is not stored.
+template <int U, class Load, class Store>
+__device__ __forceinline__ void walk_depth(int j0, int jstep, int k8n, const Load& load,
+                                           const Store& store) {
+  for (int j = j0; j < k8n; j += U * jstep) {
+    decltype(load(0)) v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) v[u] = load(j + u * jstep);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (j + u * jstep < k8n) store(j + u * jstep, v[u]);
+  }
+}
+
+// A depth-major f32 store: slice g's depth row d holds group column c at
+// x + (map.slice(g) * D + d) * width + map.col(g, c), and its bias at
+// map.slice(g) * width + map.col(g, c). vec: 4-column runs starting at a
+// multiple of 4 are contiguous, 16-byte aligned floats (the base aligned,
+// width and the map's runs multiples of 4).
+template <class Map>
+struct DepthMajorTile {
   const float* x;
   int64_t ncols;
-  int64_t scg;
-  int gc;
-  bool vec;  // ncols % 4 == 0, scg % 4 == 0 and a 16-byte aligned base
-  __device__ __forceinline__ void stage(__nv_bfloat16* dst, int g, int64_t c0, int64_t D,
-                                        int64_t d0, int dk, int dkp) const {
-    const int64_t width = int64_t(gc) * ncols;
-    stage_depth_major(dst, x + int64_t(g / gc) * D * width, width, ncols, c0, d0, dk, dkp, vec,
-                      Interleave{scg, gc, g % gc});
+  int64_t width;  // floats in a depth row: ncols (K4), gc * ncols (K5)
+  int D;
+  bool vec;
+  Map map;
+
+  __device__ __forceinline__ int64_t bias_index(int g, int64_t col, int64_t) const {
+    return int64_t(map.slice(g)) * width + map.col(g, col);
+  }
+
+  template <int N>
+  __device__ void fill(unsigned char* tile, int64_t c0, int scg, int ag, int Dp, int tid,
+                       int nthreads) const {
+    const int lg = __ffs(scg) - 1;
+    const int k8n = Dp >> 3;
+    // nthreads (256) is a multiple of N (at most 256) and of N / 4
+    if (vec && scg >= 4) {
+      constexpr int R = N / 4;  // 4-column runs in the tile
+      const int n0 = (tid & (R - 1)) << 2;
+      const int g = n0 >> lg;
+      const int64_t col = c0 + (n0 & (scg - 1));
+      const bool live = g < ag && col < ncols;  // the whole run: ncols % 4 == 0
+      const float* __restrict__ src =
+          x + (live ? (int64_t(map.slice(g)) * D) * width + map.col(g, col) : 0);
+      const auto load = [&](int j) {
+        const int d = j << 3;
+        float4 v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          v[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (live && d + e < D) v[e] = *reinterpret_cast<const float4*>(src + (d + e) * width);
+        }
+        Chunks4 p;  // the transposition: chunk i holds column n0 + i's 8 depths
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&p.c[i]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            h[e] = __floats2bfloat162_rn(component(v[2 * e], i), component(v[2 * e + 1], i));
+        }
+        return p;
+      };
+      const auto store = [&](int j, const Chunks4& p) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          *reinterpret_cast<uint4*>(tile + swz(n0 + i, j << 3, N)) = p.c[i];
+      };
+      walk_depth<2>(tid / R, nthreads / R, k8n, load, store);
+    } else {
+      const int n = tid & (N - 1);
+      const int g = n >> lg;
+      const int64_t col = c0 + (n & (scg - 1));
+      const bool live = g < ag && col < ncols;
+      const float* __restrict__ src =
+          x + (live ? (int64_t(map.slice(g)) * D) * width + map.col(g, col) : 0);
+      const auto load = [&](int j) {
+        const int d = j << 3;
+        float v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = (live && d + e < D) ? src[(d + e) * width] : 0.f;
+        uint4 p;
+        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&p);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+        return p;
+      };
+      const auto store = [&](int j, const uint4& p) {
+        *reinterpret_cast<uint4*>(tile + swz(n, j << 3, N)) = p;
+      };
+      walk_depth<4>(tid / N, nthreads / N, k8n, load, store);
+    }
   }
 };
-
-// bias4 [G/gc, gc*ncols] in the store's interleave
-__device__ __forceinline__ int64_t bias_offset(const InterleavedStore& xs, int g, int64_t col,
-                                               int64_t) {
-  return int64_t(g / xs.gc) * xs.gc * xs.ncols + Interleave{xs.scg, xs.gc, g % xs.gc}(col);
-}
-
-template <class Store>
-__global__ void __launch_bounds__(THREADS)
-layout_kernel(Store xs, const float* __restrict__ q, const float* __restrict__ bias,
-              float* __restrict__ out, int64_t B, int64_t ncols, int64_t D, int g, float alpha,
-              bool qvec4) {
-  gmin::gmin_tile<Store>(xs, q, bias, out, B, ncols, D, g, alpha, qvec4);
-}
 
 }  // namespace
 
-// C interface, loaded with ctypes. q [B, D] f32, out [B, ncols] f32, and
+// C interface, loaded with ctypes. q [B, D] f32, out [B, ncols] f32, qbf a
+// [roundup(B, 128), roundup(D, 64)] bf16 scratch, and
 // K4: store3t [g, D, ncols] f32, bias2 [g, ncols] f32;
-// K5: store4 [g/gc, D, gc*ncols] f32, bias4 [g/gc, gc*ncols] f32, scg | ncols;
-// all contiguous device buffers. Launches on `stream`, allocates nothing,
-// does not synchronise; returns the CUDA error of the launch (0 =
-// launched). qvec4: q rows 16-byte aligned with D % 4 == 0; svec: the
-// store's 16-byte aligned base.
-extern "C" int nt_scores_launch(const void* q, const void* store3t, const void* bias2, void* out,
-                                long long B, long long ncols, long long D, int g, float alpha,
-                                int qvec4, int svec, void* stream) {
-  if (B <= 0 || ncols <= 0 || D <= 0 || g < 1 || g > gmin::G) return int(cudaErrorInvalidValue);
-  const TransposedStore xs{static_cast<const float*>(store3t), int64_t(ncols),
-                           svec != 0 && ncols % 4 == 0};
-  return gmin::launch(layout_kernel<TransposedStore>, B, ncols, stream, xs,
-                      static_cast<const float*>(q), static_cast<const float*>(bias2),
-                      static_cast<float*>(out), int64_t(B), int64_t(ncols), int64_t(D), g, alpha,
-                      qvec4 != 0);
+// K5: store4 [nslice, D, gc*ncols] f32, bias4 [nslice, gc*ncols] f32 in the
+//     interleave of width iw, iw | ncols;
+// all contiguous device buffers. scg is the wrapper's plan
+// (ops/gmin_scan.resident_plan for g, or nslice * gc, slices); a plan whose
+// tile does not fit is refused. Launches the query rounding and the scan on
+// `stream`, allocates nothing, does not synchronise; returns the CUDA error
+// of the launches (0 = launched). qvec4: q rows 16-byte aligned with D % 4
+// == 0; svec: the store's 16-byte aligned base.
+extern "C" int nt_scores_launch(const void* q, const void* store3t, const void* bias2, void* qbf,
+                                void* out, long long B, long long ncols, long long D, int g,
+                                float alpha, int scg, int qvec4, int svec, void* stream) {
+  const DepthMajorTile<Columns> tile{static_cast<const float*>(store3t), ncols, ncols, int(D),
+                                     svec != 0 && ncols % 4 == 0, Columns{}};
+  return launch_resident(tile, q, bias2, qbf, out, B, ncols, D, g, alpha, scg, qvec4 != 0,
+                         stream);
 }
 
-extern "C" int c4_scores_launch(const void* q, const void* store4, const void* bias4, void* out,
-                                long long B, long long ncols, long long D, int nslice, int gc,
-                                long long scg, float alpha, int qvec4, int svec, void* stream) {
-  if (B <= 0 || ncols <= 0 || D <= 0 || nslice < 1 || gc < 1 || nslice * gc > gmin::G ||
-      scg <= 0 || ncols % scg != 0)
+extern "C" int c4_scores_launch(const void* q, const void* store4, const void* bias4, void* qbf,
+                                void* out, long long B, long long ncols, long long D, int nslice,
+                                int gc, long long iw, float alpha, int scg, int qvec4, int svec,
+                                void* stream) {
+  if (nslice < 1 || gc < 1 || nslice > G || gc > G || iw <= 0 || ncols <= 0 || ncols % iw != 0)
     return int(cudaErrorInvalidValue);
-  const InterleavedStore xs{static_cast<const float*>(store4), int64_t(ncols), int64_t(scg), gc,
-                            svec != 0 && ncols % 4 == 0 && scg % 4 == 0};
-  return gmin::launch(layout_kernel<InterleavedStore>, B, ncols, stream, xs,
-                      static_cast<const float*>(q), static_cast<const float*>(bias4),
-                      static_cast<float*>(out), int64_t(B), int64_t(ncols), int64_t(D),
-                      nslice * gc, alpha, qvec4 != 0);
+  const DepthMajorTile<Interleave> tile{static_cast<const float*>(store4), ncols, gc * ncols,
+                                        int(D), svec != 0 && ncols % 4 == 0 && iw % 4 == 0,
+                                        Interleave{iw, gc}};
+  return launch_resident(tile, q, bias4, qbf, out, B, ncols, D, nslice * gc, alpha, scg,
+                         qvec4 != 0, stream);
 }
 
 // The name of a CUDA error code, for the wrapper's exception message.

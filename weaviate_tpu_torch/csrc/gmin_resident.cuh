@@ -1,16 +1,23 @@
-// The resident-tile group-min scan for Hopper (sm_90a), shared by four of
+// The resident-tile group-min scan for Hopper (sm_90a), shared by all of
 // the port's kernels: K1 (f32 store) and K1-bf16 (the bf16 rescore copy)
 // in gmin_scan.cu, K2 (8-bit PQ codes) and K3 (nibble-packed 4-bit codes)
-// in pq_gmin.cu. They differ only in how a block fills its store tile,
-// which each does through a *filler* object with one method,
+// in pq_gmin.cu, K4 (a depth-major f32 store) and K5 (the same, groups
+// interleaved) in gmin_layouts.cu. They differ only in how a block fills
+// its store tile and where the store's bias lies, which each says through
+// a *filler* object with two methods,
 //
 //   template <int N>
 //   __device__ void fill(unsigned char* tile, int64_t c0, int scg, int ag,
 //                        int Dp, int tid, int nthreads) const;
+//   __device__ int64_t bias_index(int g, int64_t col, int64_t ncols) const;
 //
-// which writes the bf16 rows n = g * scg + c (slice g < N / scg, group
+// fill writes the bf16 rows n = g * scg + c (slice g < N / scg, group
 // column c0 + c) at swz(n, d, N), depth 0 .. Dp, zeros for slices >= ag,
-// columns >= ncols and depth >= D, with threads tid of nthreads.
+// columns >= ncols and depth >= D, with threads tid of nthreads;
+// bias_index is the element of the bias that slice g, group column col
+// reads: g * ncols + col for every filler but K5's (they inherit it from
+// the empty struct RowBias). Both are resolved at compile time, so the
+// plain fillers' bias reads compile to what the fixed index did.
 //
 // What every kernel computes, for queries q [B, D] f32, a store viewed as
 // x [16, ncols, D] (slot g * ncols + c is member g of group c) and a bias
@@ -81,7 +88,7 @@
 // use.
 // The wrappers compute the same plan (ops/gmin_scan.resident_plan), this
 // side refuses a plan that does not fit, and the routers send the depths
-// past it (D > 6208) to other scans.
+// past it (D > 6208) to other scans (K4's and K5's wrappers raise there).
 //
 // The grid is one block per SCG group columns. A persistent grid of one
 // block per SM walking the column tiles measured alike on the card (K2,
@@ -140,27 +147,38 @@ __device__ __forceinline__ uint32_t swz(int n, int d, int nrows) {
          ((((d >> 3) & 7) ^ (n & 7)) << 4) + ((d & 7) << 1);
 }
 
+// The bias layout of every filler but K5's: row g of a [ag, ncols] bias.
+struct RowBias {
+  __device__ __forceinline__ int64_t bias_index(int g, int64_t col, int64_t ncols) const {
+    return int64_t(g) * ncols + col;
+  }
+};
+
 // The bias of tile row n: slice n / scg, group column c0 + n % scg (lg =
-// log2 scg); +inf for slices >= ag and columns >= ncols.
-__device__ __forceinline__ float row_bias(const float* __restrict__ bias, int n, int lg, int scg,
-                                          int64_t c0, int64_t ncols, int ag) {
+// log2 scg), at the filler's bias_index; +inf for slices >= ag and columns
+// >= ncols.
+template <class Filler>
+__device__ __forceinline__ float row_bias(const Filler& filler, const float* __restrict__ bias,
+                                          int n, int lg, int scg, int64_t c0, int64_t ncols,
+                                          int ag) {
   const int g = n >> lg;
   const int64_t col = c0 + (n & (scg - 1));
-  return (g < ag && col < ncols) ? bias[int64_t(g) * ncols + col] : f32_inf();
+  return (g < ag && col < ncols) ? bias[filler.bias_index(g, col, ncols)] : f32_inf();
 }
 
 // The block's bias in registers, once: accumulator 4 i + {0, 1} (and +
 // {2, 3}, 8 rows down) is column 2 (lane % 4) + {0, 1} of chunk i, tile row
 // n = 8 i + 2 (lane % 4) + jj.
-template <int N>
-__device__ __forceinline__ void load_bias(float (&br)[N / 4], const float* __restrict__ bias,
-                                          int lg, int scg, int64_t c0, int64_t ncols, int ag,
-                                          int lane) {
+template <int N, class Filler>
+__device__ __forceinline__ void load_bias(float (&br)[N / 4], const Filler& filler,
+                                          const float* __restrict__ bias, int lg, int scg,
+                                          int64_t c0, int64_t ncols, int ag, int lane) {
 #pragma unroll
   for (int i = 0; i < N / 8; ++i)
 #pragma unroll
     for (int jj = 0; jj < 2; ++jj)
-      br[2 * i + jj] = row_bias(bias, 8 * i + 2 * (lane & 3) + jj, lg, scg, c0, ncols, ag);
+      br[2 * i + jj] =
+          row_bias(filler, bias, 8 * i + 2 * (lane & 3) + jj, lg, scg, c0, ncols, ag);
 }
 
 // Fold one warp's 16 query rows x N accumulators (wgmma's layout:
@@ -514,12 +532,12 @@ resident_kernel(__grid_constant__ const CUtensorMap qmap, const Filler filler,
   filler.template fill<N>(tile, c0, scg, ag, Dp, threadIdx.x, 128 * CONSUMERS);
   if constexpr (SMEM_BIAS) {
     for (int n = threadIdx.x; n < N; n += 128 * CONSUMERS)
-      bias_s[n] = row_bias(bias, n, lg, scg, c0, ncols, ag);
+      bias_s[n] = row_bias(filler, bias, n, lg, scg, c0, ncols, ag);
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
   asm volatile("bar.sync 1, %0;\n" ::"n"(128 * CONSUMERS) : "memory");
   float br[SMEM_BIAS ? 1 : N / 4];
-  if constexpr (!SMEM_BIAS) load_bias<N>(br, bias, lg, scg, c0, ncols, ag, lane);
+  if constexpr (!SMEM_BIAS) load_bias<N>(br, filler, bias, lg, scg, c0, ncols, ag, lane);
 
   const int wg = warp >> 2;
   const uint32_t ring_s = smem_u32(ring);

@@ -3,8 +3,9 @@
 // group_min_scores, gmin_scan.py:174-201), over an f32 store (K1, the
 // uncompressed index) or a bf16 one (K1-bf16, the rescore copy of the
 // PQ-compressed index, pq.rescore=true). Both run the resident-tile scan of
-// gmin_resident.cuh, which K2 and K3 (pq_gmin.cu) share; this file holds
-// their two tile fillers and their entry points.
+// gmin_resident.cuh, which K2 and K3 (pq_gmin.cu) and K4 and K5
+// (gmin_layouts.cu) share; this file holds their two tile fillers and
+// their entry points.
 //
 // What it computes, for queries q [B, D] f32, the store viewed as
 // x [16, ncols, D] (slot g*ncols + c is member g of group c) and a bias
@@ -83,7 +84,7 @@ __device__ __forceinline__ void fill_rows(unsigned char* tile, int Dp, int tid, 
 // f32 store [16, ncols, D], rounded to bf16 as it is filled. vec: D % 4 ==
 // 0 and a 16-byte aligned base, so every row and every 4-element step of
 // it is aligned.
-struct F32Tile {
+struct F32Tile : RowBias {
   const float* x;
   int64_t ncols;
   int D;
@@ -123,7 +124,7 @@ struct F32Tile {
 
 // bf16 store [16, ncols, D], copied. vec: D % 8 == 0 and a 16-byte aligned
 // base, so every row and every 8-element step of it is aligned.
-struct BF16Tile {
+struct BF16Tile : RowBias {
   const __nv_bfloat16* x;
   int64_t ncols;
   int D;
@@ -169,7 +170,7 @@ struct BF16Tile {
 extern "C" int gmin_scan_launch(const void* q, const void* store, const void* bias, void* qbf,
                                 void* out, long long B, long long ncols, long long D, int ag,
                                 float alpha, int scg, int qvec4, int svec, void* stream) {
-  const F32Tile tile{static_cast<const float*>(store), ncols, int(D), svec != 0};
+  const F32Tile tile{{}, static_cast<const float*>(store), ncols, int(D), svec != 0};
   return launch_resident(tile, q, bias, qbf, out, B, ncols, D, ag, alpha, scg, qvec4 != 0,
                          stream);
 }
@@ -178,7 +179,8 @@ extern "C" int gmin_scan_bf16_launch(const void* q, const void* store, const voi
                                      void* qbf, void* out, long long B, long long ncols,
                                      long long D, int ag, float alpha, int scg, int qvec4,
                                      int svec, void* stream) {
-  const BF16Tile tile{static_cast<const __nv_bfloat16*>(store), ncols, int(D), svec != 0};
+  const BF16Tile tile{{}, static_cast<const __nv_bfloat16*>(store), ncols, int(D),
+                       svec != 0};
   return launch_resident(tile, q, bias, qbf, out, B, ncols, D, ag, alpha, scg, qvec4 != 0,
                          stream);
 }

@@ -55,7 +55,7 @@ __device__ __forceinline__ int code_at(const uint8_t* row, int s, int M) {
 // == 0, so each 8-element step lies inside one segment and one aligned
 // 16-byte centroid load serves it.
 template <int BITS>
-struct CodeTile {
+struct CodeTile : RowBias {
   const uint8_t* codes;
   const __nv_bfloat16* cb;
   int64_t ncols;
@@ -109,7 +109,7 @@ int launch_codes(const void* q, const void* codes, const void* bias, const void*
   if ((BITS == 8 && C > 256) || (BITS == 4 && (C > 16 || M % 2 != 0)))
     return int(cudaErrorInvalidValue);
   const int ds = int(D / M);
-  const CodeTile<BITS> tile{static_cast<const uint8_t*>(codes),
+  const CodeTile<BITS> tile{{}, static_cast<const uint8_t*>(codes),
                             static_cast<const __nv_bfloat16*>(cb), ncols, int(D), M, C, ds,
                             cbvec != 0 && ds % 8 == 0};
   return launch_resident(tile, q, bias, qbf, out, B, ncols, D, ag, alpha, scg, qvec4 != 0,

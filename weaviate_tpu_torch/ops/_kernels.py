@@ -50,7 +50,7 @@ def build(name: str) -> Path:
     return the library's path. Concurrent builds each compile into a
     private temporary file and rename it into place."""
     src = CSRC / f"{name}.cu"
-    # the key covers the shared headers too: an edit to the tile loop
+    # the key covers the shared headers too: an edit to the resident tile
     # rebuilds every kernel that includes it
     parts = [src.read_bytes()] + [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
     key = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]

@@ -1,16 +1,19 @@
 """Stage-level profiler for the headline gmin search on the card (twin of
 `tools/profile_gmin.py`): three timing modes over one shared setup, and
 the two store layouts of the group-min scan that the component mode
-compares with K1, as hand-written Hopper kernels (`csrc/gmin_layouts.cu`):
+compares with K1, as hand-written Hopper kernels (`csrc/gmin_layouts.cu`,
+K1's resident-tile scan with a depth-major filler):
 
   K4 `nt_scores`  the store pre-transposed to [G, D, ncols], so the
                   product reads it as it lies (no transpose on the way in);
   K5 `c4_scores`  gc groups side by side, [G/gc, D, gc*ncols] in a
                   tile-wise interleave of width scg (`interleave`).
 
-Each wrapper launches its kernel for CUDA tensors, counts the launch
-(`nt_launches`, `c4_launches[gc]`) and raises if the launch fails; for CPU
-tensors it runs its plain torch version (`*_reference`).
+Each wrapper launches its kernel for CUDA tensors with K1's tile plan for
+the store's groups (`layout_plan`), counts the launch (`nt_launches`,
+`c4_launches[gc]`) and raises if the depth has no plan (D > 6208, where the
+reference has no limit) or the launch fails; for CPU tensors it runs its
+plain torch version (`*_reference`).
 
 Modes (``--mode``):
 
@@ -71,12 +74,9 @@ from weaviate_tpu_torch.ops.topk import smallest_k
 D = 128
 K = 10
 REPS = 5
-# the Hopper tile loop's constants (csrc/gmin_tile.cuh), printed where the
-# TPU profiler printed its VMEM plan
-TILE_BQ, TILE_BC, TILE_DK = 64, 128, 128
-# K5's interleave width: the tile loop's column tile BC, so a block's
-# output columns are one contiguous run of each member
-SCG = TILE_BC
+# K5's interleave width in the component mode: the width the profiler has
+# always used, so its layout and its earlier K5 times stay comparable
+INTERLEAVE_WIDTH = 128
 
 # launches of the CUDA kernels by nt_scores and by c4_scores (keyed by gc),
 # never the CPU path
@@ -91,8 +91,9 @@ def _layouts_lib():
     if _lib is None:
         lib = _kernels.load("gmin_layouts")
         vp, ll, ci, cf = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-        lib.nt_scores_launch.argtypes = [vp, vp, vp, vp, ll, ll, ll, ci, cf, ci, ci, vp]
-        lib.c4_scores_launch.argtypes = [vp, vp, vp, vp, ll, ll, ll, ci, ci, ll, cf, ci, ci, vp]
+        lib.nt_scores_launch.argtypes = [vp, vp, vp, vp, vp, ll, ll, ll, ci, cf, ci, ci, ci, vp]
+        lib.c4_scores_launch.argtypes = [vp, vp, vp, vp, vp, ll, ll, ll, ci, ci, ll, cf, ci, ci,
+                                         ci, vp]
         lib.nt_scores_launch.restype = lib.c4_scores_launch.restype = ctypes.c_int
         lib.gmin_layouts_error_string.argtypes = [ctypes.c_int]
         lib.gmin_layouts_error_string.restype = ctypes.c_char_p
@@ -165,6 +166,16 @@ def _check_operands(name: str, q: torch.Tensor, **tensors: torch.Tensor) -> None
             raise ValueError(f"{arg} must be a contiguous torch.float32 tensor on {q.device}")
 
 
+def layout_plan(d: int, groups: int) -> gmin_scan.ResidentPlan:
+    """K1's resident-tile plan for a store of `groups` slices at depth d
+    (every slice is scanned, as in the reference); raises past D 6208,
+    where no tile fits."""
+    plan = gmin_scan.resident_plan(d, groups)
+    if plan is None:
+        raise gmin_scan.no_plan_error(d)
+    return plan
+
+
 def _launch(fn, *args) -> None:
     rc = fn(*args)
     if rc != 0:
@@ -176,8 +187,8 @@ def nt_scores(q: torch.Tensor, store3t: torch.Tensor, bias2: torch.Tensor,
               alpha: float) -> torch.Tensor:
     """[B, D] f32 queries x [g, D, ncols] f32 transposed store -> [B, ncols]
     group-min scores over all g slices (K4). On a CUDA tensor this launches
-    the Hopper kernel and raises if the launch fails; on a CPU tensor it
-    runs nt_scores_reference."""
+    the Hopper kernel with layout_plan(D, g) and raises if D has no plan or
+    the launch fails; on a CPU tensor it runs nt_scores_reference."""
     global nt_launches
     if q.device.type == "cpu":
         return nt_scores_reference(q, store3t, bias2, alpha)
@@ -187,14 +198,15 @@ def nt_scores(q: torch.Tensor, store3t: torch.Tensor, bias2: torch.Tensor,
     if d2 != d or tuple(bias2.shape) != (g, ncols) or g > G:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, store3t {tuple(store3t.shape)}, "
                          f"bias2 {tuple(bias2.shape)} (at most {G} slices)")
+    plan = layout_plan(d, g)
     out = torch.empty((b, ncols), dtype=torch.float32, device=q.device)
     if b == 0 or ncols == 0:
         return out
     lib = _layouts_lib()
     _launch(lib.nt_scores_launch, q.data_ptr(), store3t.data_ptr(), bias2.data_ptr(),
-            out.data_ptr(), b, ncols, d, g, float(alpha),
-            int(d % 4 == 0 and q.data_ptr() % 16 == 0), int(store3t.data_ptr() % 16 == 0),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            gmin_scan.query_scratch(q, plan).data_ptr(), out.data_ptr(), b, ncols, d, g,
+            float(alpha), plan.scg, int(d % 4 == 0 and q.data_ptr() % 16 == 0),
+            int(store3t.data_ptr() % 16 == 0), torch.cuda.current_stream(q.device).cuda_stream)
     nt_launches += 1
     return out
 
@@ -204,8 +216,9 @@ def c4_scores(q: torch.Tensor, store4: torch.Tensor, bias4: torch.Tensor, alpha:
     """[B, D] f32 queries x store4 [G/gc, D, gc*ncols] f32 and bias4 [G/gc,
     gc*ncols] in the interleave of width scg (`interleave`) -> [B, ncols]
     group-min scores over all groups (K5). On a CUDA tensor this launches
-    the Hopper kernel and raises if the launch fails; on a CPU tensor it
-    runs c4_scores_reference."""
+    the Hopper kernel with layout_plan(D, nslice * gc) and raises if D has
+    no plan or the launch fails; on a CPU tensor it runs
+    c4_scores_reference."""
     if q.device.type == "cpu":
         return c4_scores_reference(q, store4, bias4, alpha, scg, gc)
     _check_operands("c4_scores", q, store4=store4, bias4=bias4)
@@ -217,14 +230,15 @@ def c4_scores(q: torch.Tensor, store4: torch.Tensor, bias4: torch.Tensor, alpha:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, store4 {tuple(store4.shape)}, "
                          f"bias4 {tuple(bias4.shape)}, gc {gc}, scg {scg} (scg must divide "
                          f"ncols, at most {G} groups)")
+    plan = layout_plan(d, nslice * gc)
     out = torch.empty((b, ncols), dtype=torch.float32, device=q.device)
     if b == 0 or ncols == 0:
         return out
     lib = _layouts_lib()
     _launch(lib.c4_scores_launch, q.data_ptr(), store4.data_ptr(), bias4.data_ptr(),
-            out.data_ptr(), b, ncols, d, nslice, gc, scg, float(alpha),
-            int(d % 4 == 0 and q.data_ptr() % 16 == 0), int(store4.data_ptr() % 16 == 0),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            gmin_scan.query_scratch(q, plan).data_ptr(), out.data_ptr(), b, ncols, d, nslice,
+            gc, scg, float(alpha), plan.scg, int(d % 4 == 0 and q.data_ptr() % 16 == 0),
+            int(store4.data_ptr() % 16 == 0), torch.cuda.current_stream(q.device).cuda_stream)
     c4_launches[gc] = c4_launches.get(gc, 0) + 1
     return out
 
@@ -301,7 +315,9 @@ def run_component(d) -> dict[str, float]:
     from weaviate_tpu_torch.index.gpu import _search_full
 
     rg = 64
-    print(f"tiles BQ={TILE_BQ} BC={TILE_BC} DK={TILE_DK} (csrc/gmin_tile.cuh)", flush=True)
+    plan = gmin_scan.resident_plan(D, G)
+    print(f"resident plan S={plan.slices} SCG={plan.scg} N={plan.width} dp={plan.dp} "
+          f"smem={plan.smem} (csrc/gmin_resident.cuh)", flush=True)
     out = {"kernel": timed("kernel", d.b, d.dev, gmin_scan.group_min_scores,
                            d.q, d.store3, d.bias2, d.alpha)}
     gmin = gmin_scan.group_min_scores(d.q, d.store3, d.bias2, d.alpha)
@@ -316,10 +332,11 @@ def run_component(d) -> dict[str, float]:
     store3t = transpose_store(d.store3)
     out["kernel_nt"] = timed("kernel_nt", d.b, d.dev, nt_scores, d.q, store3t, d.bias2, d.alpha)
     for gc in (2, 4):
-        s4, b4 = interleave(store3t, d.bias2, gc, SCG)
-        print(f"  gc={gc}: scg={SCG} slice_width={gc * SCG}", flush=True)
+        s4, b4 = interleave(store3t, d.bias2, gc, INTERLEAVE_WIDTH)
+        print(f"  gc={gc}: scg={INTERLEAVE_WIDTH} slice_width={gc * INTERLEAVE_WIDTH}",
+              flush=True)
         out[f"kernel_c{gc}"] = timed(f"kernel_c{gc}", d.b, d.dev, c4_scores,
-                                     d.q, s4, b4, d.alpha, SCG, gc)
+                                     d.q, s4, b4, d.alpha, INTERLEAVE_WIDTH, gc)
         del s4, b4
     return out
 
