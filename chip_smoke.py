@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (weaviate_tpu_torch) on one NVIDIA card at
 the headline scale and at the PQ configuration's, run its stage profiler
-at full width, and check them.
+at full width, drive its Shard at 1M objects, and check them.
 
     python3 chip_smoke.py [--seed 7]
 
-Two workloads, each through the `VectorIndex` seam a shard calls
+Two workloads through the `VectorIndex` seam a shard calls
 (`new_vector_index` -> `add_batch` -> `search_by_vectors` /
 `search_by_vectors_async`), k=10, 16384-query batches:
 
@@ -31,6 +31,13 @@ B. BASELINE.json config 4, PQ-compressed HNSW on Sphere-1M's shape:
 On A, B1, B2 and B3 the sync batches run again with the fused-dispatch
 toggle off (the staged dispatch: slot indices fetched, translated on the
 host); their ids and distances must equal the fused ones bit for bit.
+Queries go up through the index's pinned staging pool in every phase;
+A's and B1's profiled batches print their device-busy share.
+
+A-bf16. A's data in an index with `storeDtype: bfloat16`: K1's bf16
+   filler scans the store itself. K1-bf16 against its plain version on
+   that store, one profiled sync batch, recall@10 against exact f32
+   (printed, no bar), and a 256-query slice against the CPU plain path.
 
 C. the stage profiler (`weaviate_tpu_torch.tools.profile_gmin`) at its
    default shape, N = 2^20 x 128 f32 gaussian, B = 16384: its component,
@@ -39,6 +46,36 @@ C. the stage profiler (`weaviate_tpu_torch.tools.profile_gmin`) at its
    against K1 on the same data (dead slots and 100 whole dead groups); all
    three run K1's resident-tile scan with a depth-major filler, so they are
    timed beside K1 on the untransposed store at the same shape.
+
+D. the Shard (`weaviate_tpu_torch.db.shard.Shard`) at full width: one
+   class of 1,048,576 objects with SIFT-shaped clustered vectors (the
+   headline generator, D 128, seed + 3), l2, k=10, two properties (`tag`,
+   text with 32 values, 32768 rows each: the gather tier; `bucket`, int
+   0-999, `bucket < 500` ~524k rows: the masked K1 scan), imported through
+   `Shard.put_batch` in batches of 10,000 and flushed to LSM segments.
+   Its main path (K1's count set to 0 just before, read just after):
+   `object_vector_search` at B 256, hydrated, 7 runs (p50, recall@10
+   against exact f32); the raw lane `search_raw_packed` at B 16384 (the
+   port's lsm_native build), 5 runs, and one batch of each lane under
+   torch.profiler; the two filters (gather >= 0.99, masked >= 0.95); a
+   delete check through `delete_object`. Then: the host plane
+   (`search_by_vectors_host`, B 64) against the card's exact tier; the
+   breaker tripped by device errors injected at `index.gpu.dispatch` (the
+   dispatch under `db.shard.search`), served by the host plane while
+   open, closed after recovery with its host rows released; `compact()`
+   after deleting 10% of the objects (the exact tier answers the same
+   before and after); restart (LSM reopen and vector.log replay) answers
+   the same. Before the main path, K1 is held against its plain version
+   on the Shard index's own store at D's shapes (its own tile plan, B 256
+   and B 16384).
+
+    python3 chip_smoke.py --busy-share CHECKOUT
+
+runs only A's and B1's sync p50 and device-busy share, with the package
+imported from CHECKOUT (`.`, or the parent commit unpacked with `git
+archive`), to compare the index's host path of two versions on one card
+in turns (parent, change, change, parent). It prints one JSON object with
+the numbers as its last line and no result line.
 
 Phases, in order; any failure raises and the script exits non-zero:
 1. card: name and power limit (nvidia-smi), compute capability 9.0;
@@ -60,7 +97,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    profiler modes with their launch counts (each count set to 0 just
    before the modes run and read just after), K1's time on the same store
    and shape, then the layout kernels' timings and their ratio to it;
-6. the card line, one JSON line of per-kernel numbers, the result line.
+6. A-bf16, then D (each names itself on stderr);
+7. the card line, one JSON line of per-kernel numbers (K1's launches and
+   max abs error include D's, K1-bf16's the A-bf16 run's), the result
+   line.
 
 Each phase also names itself on stderr as it starts. A watchdog stops the
 run at WATCHDOG_S seconds: it prints every thread's Python stack to stderr
@@ -81,7 +121,9 @@ import subprocess
 import sys
 import tempfile
 import time
+import uuid as uuidlib
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
@@ -102,7 +144,22 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-3
 KERNELS = ("gmin_scan", "pq_gmin", "gmin_layouts")  # the CUDA sources
 PROF_N, PROF_ITERS = 1 << 20, 8  # workload C: the profiler's default shape
-WATCHDOG_S = 1140  # seconds: a run past this has stalled (a whole run takes ~200 s)
+D_N = 1 << 20             # workload D: objects in the shard
+D_IMPORT = 10_000         # objects per Shard.put_batch
+D_TAGS, D_BUCKETS = 32, 1000  # tag values (32768 rows each), bucket range
+D_B, D_REPS = 256, 7      # hydrated batch (bench.py's _grpc_e2e shape), timed runs
+D_RAW_REPS = 5            # timed raw-lane batches of BATCH queries
+D_HOST_B, D_EXACT_B = 64, 4  # host-plane batch; rows per exact-tier device call (B < 8)
+# the LSM settings the reference App gives every shard by default
+# (PERSISTENCE_MEMTABLES_MAX_SIZE_MB 200, PERSISTENCE_FLUSH_IDLE_MEMTABLES_AFTER 60)
+D_STORE_OPTS = {"memtable_max_bytes": 200 << 20, "flush_idle_seconds": 60.0}
+# host plane vs device: the host scores ||q||^2 - 2 q.x + ||x||^2 in f32,
+# the device's exact tier rescores sum((x - q)^2): at ||q||^2 ~ 500 the
+# expanded form's rounding is ~1e-4 absolute, so two neighbours closer
+# than that may swap places (or trade the 10th place) between the two
+HOST_RTOL, HOST_ATOL = 1e-5, 1e-3
+BUSY_REPS = 3             # profiled batches per workload of --busy-share
+WATCHDOG_S = 1140  # seconds: a run past this has stalled (a whole run takes ~600 s)
 T_START = time.perf_counter()
 
 
@@ -171,27 +228,56 @@ def bound(b: int, ag: int, ncols: int, d: int, row_bytes: float,
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def profile_sync_batch(idx, q: np.ndarray, card: str, label: str) -> None:
+def profile_batch(search) -> tuple[float, list[tuple[str, float, int]]]:
+    """One sync batch (search()) under torch.profiler -> (wall ms, [(kernel
+    name, device ms, launches)] sorted by device ms). The batch runs twice
+    in one session and only the second counts: the kernels that start
+    inside its marked range. (A session started again in the same process
+    saw the card's events only after a delay and dropped a batch's first
+    kernels; the first run absorbs that.)"""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    mark = "chip_smoke.measured_batch"
+    with torch.profiler.profile(activities=acts) as prof:
+        search()
+        torch.cuda.synchronize()
+        with torch.profiler.record_function(mark):
+            t0 = time.perf_counter()
+            search()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    start = min(e.time_range.start for e in events if e.name == mark)
+    per_key: dict[str, list] = {}
+    for e in events:
+        # the marker itself shows up on the device too, spanning the batch
+        if (e.device_type == torch.autograd.DeviceType.CUDA and e.name != mark
+                and e.time_range.start >= start and e.time_range.elapsed_us() > 0):
+            row = per_key.setdefault(e.name, [0.0, 0])
+            row[0] += e.time_range.elapsed_us() / 1e3
+            row[1] += 1
+    kernels = sorted(((key, ms, count) for key, (ms, count) in per_key.items()),
+                     key=lambda r: -r[1])
+    return wall_ms, kernels
+
+
+def profile_sync_batch(search, q: np.ndarray, card: str,
+                       label: str) -> Optional[tuple[float, float]]:
     """Where one sync batch's device time goes: torch.profiler's kernel
     times (the device busy share is their sum over the batch's wall
-    time)."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        idx.search_by_vectors(q, K)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and e.self_device_time_total > 0), key=lambda r: -r[1])
+    time), measured by `profile_batch` (the batch runs twice, the second
+    counts). search(q) runs the batch: an index's or a shard's entry
+    point. -> (the busy share, the device ms), None when the profiler saw
+    no device time."""
+    wall_ms, kernels = profile_batch(lambda: search(q))
     busy = sum(ms for _, ms, _ in kernels)
     if not kernels:
         log(f"[{card}] {label} profile: the profiler saw no device time (not measured)")
-        return
+        return None
     log(f"[{card}] {label} profile of one {len(q)}-query sync batch: wall {wall_ms:.1f} ms, "
-        f"device kernels {busy:.1f} ms ({busy / wall_ms:.0%} busy, "
-        f"{1 - busy / wall_ms:.0%} idle)")
+        f"device kernels {busy:.1f} ms ({busy / wall_ms:.1%} busy, "
+        f"{1 - busy / wall_ms:.1%} idle)")
     for key, ms, count in kernels[:10]:
         log(f"  {ms:8.3f} ms  x{count:<4d} {key[:100]}")
+    return busy / wall_ms, busy
 
 
 def dead_mask(capacity, ncols, n, rng, dev, tombs=None):
@@ -207,12 +293,13 @@ def dead_mask(capacity, ncols, n, rng, dev, tombs=None):
     return dead
 
 
-def check_kernel(name, kernel, plain, q_all, biases, ncols, ag) -> float:
+def check_kernel(name, kernel, plain, q_all, biases, ncols, ag, sizes=(SLICE, BATCH)) -> float:
     """The kernel against its plain version at the main-path shapes, for
-    each (metric, alpha, bias2): the 1024-query slice, then the whole
-    16384-query batch. -> max abs error over finite scores."""
+    each (metric, alpha, bias2) at each batch size of `sizes` (by default
+    the 1024-query slice, then the whole 16384-query batch). -> max abs
+    error over finite scores."""
     max_err = 0.0
-    for b in (SLICE, BATCH):
+    for b in sizes:
         q_b = q_all[:b]
         for metric, alpha, bias2 in biases:
             got = kernel(q_b, bias2, alpha, ag)
@@ -397,7 +484,10 @@ def headline(dev, card, seed) -> dict:
         np.testing.assert_allclose(d_r, d_d, rtol=1e-6)
         log(f"A restart: replayed vector.log and answered the same in {restart_s:.2f} s")
         phase("A profile")
-        profile_sync_batch(idx, batches[0], card, "A")
+        busy = profile_sync_batch(lambda q: idx.search_by_vectors(q, K), batches[0], card, "A")
+        log(f"[{card}] A device-busy share with the pinned staging pool: "
+            f"{'not measured' if busy is None else f'{busy[0]:.1%}'} (PR 6, fresh buffers: "
+            "81-85%)")
         phase("A shutdown")
         idx.shutdown()
         del idx, x_dev
@@ -635,7 +725,9 @@ def pq_workload(dev, card, seed):
         np.testing.assert_allclose(d_r, d_d, rtol=1e-6)
         log(f"B1 restart: replayed vector.log, re-entered compressed mode from pq.npz and "
             f"answered the same in {restart_s:.2f} s")
-        profile_sync_batch(idx, batches[0], card, "B1")
+        busy = profile_sync_batch(lambda q: idx.search_by_vectors(q, K), batches[0], card, "B1")
+        log(f"[{card}] B1 device-busy share with the pinned staging pool: "
+            f"{'not measured' if busy is None else f'{busy[0]:.1%}'} (PR 6, fresh buffers: 75%)")
         log(f"[{card}] B1 end to end: recall@10 {recall:.4f}, sync p50 {p50 * 1e3:.1f} ms "
             f"(staged {staged_p50 * 1e3:.1f} ms), "
             f"pipelined {qps:.0f} QPS, import {N / ingest_s:.0f} rows/s, compress "
@@ -699,7 +791,7 @@ def pq_workload(dev, card, seed):
             torch.from_numpy(q_cpu), cb_c.to(torch.bfloat16), cb_c.reshape(-1, pq8.ds), None,
             snap.slot_to_doc_dev.cpu(), False, K, "dot", rg, ag, None,
             build_codes_blocks(codes_c)))
-        profile_sync_batch(idx, batches[0], card, "B2")
+        profile_sync_batch(lambda q: idx.search_by_vectors(q, K), batches[0], card, "B2")
         log(f"[{card}] B2 end to end: ADC recall@10 {r_adc:.4f}, exact recall@10 {r_exact:.4f}, "
             f"sync p50 {p50 * 1e3:.1f} ms (staged {staged_p50 * 1e3:.1f} ms), pipelined "
             f"{qps:.0f} QPS, import incl. compress {N / ingest_s:.0f} rows/s")
@@ -762,7 +854,7 @@ def pq_workload(dev, card, seed):
             pq8.codebook_dev().cpu().reshape(-1, pq8.ds), snap.rescore_dev.cpu(), None,
             snap.slot_to_doc_dev.cpu(), False, K, "dot", rg4, rc, ag, True, None,
             build_codes_blocks(codes8_c)))
-        profile_sync_batch(idx, batches[0], card, "B3")
+        profile_sync_batch(lambda q: idx.search_by_vectors(q, K), batches[0], card, "B3")
         log(f"[{card}] B3 end to end: exact recall@10 {r_exact:.4f}, sync p50 {p50 * 1e3:.1f} ms "
             f"(staged {staged_p50 * 1e3:.1f} ms), pipelined {qps:.0f} QPS, import incl. compress "
             f"{N / ingest_s:.0f} rows/s")
@@ -816,6 +908,466 @@ def pq_workload(dev, card, seed):
         {"name": "pq4_gmin", "route": "cuda", "source": "weaviate_tpu_torch/csrc/pq_gmin.cu",
          "replaces": "weaviate_tpu/ops/pq4.py:151", **out["k3"]},
     ]
+
+
+# -- workload A with a bf16 store ---------------------------------------------------
+
+def headline_bf16(dev, card, seed) -> dict:
+    """A's data (the same seed) in an index with `storeDtype: bfloat16`: K1
+    runs its bf16 filler on the store itself. One profiled sync batch,
+    recall@10 against exact f32 (printed, no bar: a first measurement),
+    K1-bf16 on that store against its plain version, and the whole search
+    on a slice against CPU copies of the snapshot (cpu_twin_check). ->
+    K1-bf16's launches on this path and its max abs error."""
+    from weaviate_tpu_torch.entities.vectorindex import parse_and_validate_config
+    from weaviate_tpu_torch.index import new_vector_index
+    from weaviate_tpu_torch.ops import gmin_scan
+
+    G = gmin_scan.G
+    rng = np.random.default_rng(seed)
+    vecs = make_data(N, DIM, rng)
+    batches = queries(vecs, rng)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_a16_")
+    try:
+        cfg = parse_and_validate_config("hnsw_tpu", {"distance": "l2-squared",
+                                                     "storeDtype": "bfloat16"})
+        idx = new_vector_index(cfg, tmp)
+        t0 = time.perf_counter()
+        idx.add_batch(np.arange(N), vecs)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        snap = idx._read_snapshot()
+        if snap.store.dtype != torch.bfloat16:
+            raise AssertionError(f"A-bf16: the store is {snap.store.dtype}")
+        log(f"A-bf16 ingest: {N} rows into a bf16 store in {ingest_s:.2f} s "
+            f"({N / ingest_s:.0f} rows/s), capacity {idx.capacity}")
+        ncols, ag = snap.capacity // G, -(-snap.n // (snap.capacity // G))
+        store3 = snap.store.view(G, ncols, DIM)
+        dead = dead_mask(snap.capacity, ncols, snap.n, rng, dev, snap.tombs)
+        biases = [(m, a, torch.where(dead, float("inf"), base).view(G, ncols))
+                  for m, a, base in (("l2", -2.0, snap.sq_norms),
+                                     ("dot", -1.0, torch.zeros_like(snap.sq_norms)))]
+        q_all = torch.from_numpy(batches[0]).to(dev)
+        k1 = lambda q, b2, a, g: gmin_scan.group_min_scores(q, store3, b2, a, active_g=g)  # noqa: E731
+        k1_plain = lambda q, b2, a, g: gmin_scan.group_min_scores_reference(q, store3, b2, a, g)  # noqa: E731
+        err = check_kernel("gmin_scan bf16 (bf16 store)", k1, k1_plain, q_all, biases, ncols, ag)
+        # K1-bf16 at D 128 on the store itself, beside K1-f32 on A's store
+        store_bf = snap.store[: ncols * ag]
+        time_kernel("gmin_scan bf16 (bf16 store)", card, k1, k1_plain,
+                    lambda q: torch.matmul(q.bfloat16(), store_bf.T), q_all, biases[0][2], ncols,
+                    ag, DIM, 2.0 * DIM, 0.0, f"bf16 matmul [Bx{DIM}]x[{DIM}x{store_bf.shape[0]}]",
+                    sizes=(BATCH,), detail=plan_note(gmin_scan.resident_plan(DIM, ag)))
+        del biases, dead, q_all, store_bf
+        torch.cuda.empty_cache()
+
+        x_dev = torch.from_numpy(vecs).to(dev)
+        gt_rows = np.arange(0, BATCH, BATCH // N_GT)
+        gt = exact_topk(torch.from_numpy(batches[0][gt_rows]).to(dev), x_dev, K)
+        del x_dev
+        gmin_scan.launches = 0
+        lat, p50, ids0, d0 = sync_batches(idx, batches[0], 4)
+        busy = profile_sync_batch(lambda q: idx.search_by_vectors(q, K), batches[0], card,
+                                  "A-bf16")
+        launches = gmin_scan.launches
+        recall = recall_at_k(ids0[gt_rows].astype(np.int64), gt)
+        if ids0.shape != (BATCH, K) or not np.isfinite(d0).all() or launches < 5:
+            raise AssertionError(f"A-bf16: result {ids0.shape}, launches {launches}")
+        log(f"A-bf16 sync: {['%.1f ms' % (t * 1e3) for t in lat]}; recall@10 {recall:.4f} vs "
+            f"exact f32 on {N_GT} queries (printed, no bar); K1-bf16 launches {launches}; "
+            f"busy {'not measured' if busy is None else f'{busy[0]:.1%}'}")
+        cpu_rows = np.arange(0, BATCH, BATCH // N_CPU)
+        q_cpu = batches[0][cpu_rows]
+        card_ids, card_d = idx.search_by_vectors(q_cpu, K)
+        store_c = snap.store.cpu()
+        cpu_twin_check("A-bf16", card_ids, card_d, lambda: gmin_scan.search_gmin_fused(
+            store_c, snap.sq_norms.cpu(), snap.tombs.cpu(), snap.n, torch.from_numpy(q_cpu),
+            None, snap.slot_to_doc_dev.cpu(), False, K, "l2-squared",
+            idx._gmin_rg(K, snap.capacity), ag, gmin_scan.build_rescore_blocks(store_c)))
+        log(f"[{card}] A-bf16 end to end: recall@10 {recall:.4f}, sync p50 {p50 * 1e3:.1f} ms, "
+            f"ingest {N / ingest_s:.0f} rows/s, store {snap.store.numel() * 2 / 2**20:.0f} MiB")
+        idx.shutdown()
+        del idx, snap, store3, store_c
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": err}
+
+
+# -- workload D: the Shard at full width ---------------------------------------------
+
+def shard_doc_ids(results) -> np.ndarray:
+    """Hydrated SearchResults -> [B, K] doc ids (-1 where a row is short)."""
+    from weaviate_tpu_torch.entities.storobj import StorObj
+    out = np.full((len(results), K), -1, dtype=np.int64)
+    for i, row in enumerate(results):
+        for j, r in enumerate(row[:K]):
+            out[i, j] = StorObj.doc_id_from_binary(r.raw_pristine())
+    return out
+
+
+def shard_dists(results) -> np.ndarray:
+    out = np.full((len(results), K), np.inf, dtype=np.float32)
+    for i, row in enumerate(results):
+        out[i, : len(row[:K])] = [r.distance for r in row[:K]]
+    return out
+
+
+def raw_doc_ids(packed, rows) -> np.ndarray:
+    """The raw lane's packed images -> [len(rows), K] doc ids of those
+    query rows."""
+    from weaviate_tpu_torch.entities.storobj import StorObj
+    vbuf, voffs, _, _, counts = packed
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    out = np.full((len(rows), K), -1, dtype=np.int64)
+    for i, r in enumerate(rows):
+        for j in range(int(counts[r])):
+            v = int(starts[r]) + j
+            out[i, j] = StorObj.doc_id_from_binary(bytes(vbuf[voffs[v]:voffs[v + 1]]))
+    return out
+
+
+def same_neighbours(label, ids, d, want_ids, want_d) -> int:
+    """Two exact answers agree: per query the same ids with distances
+    within HOST_RTOL / HOST_ATOL, in any order, except that an id held by
+    only one side must lie within 2 * HOST_ATOL of the 10th distance (two
+    neighbours that close may trade the 10th place under the two
+    formulas' rounding). -> rows that differ in order or in the 10th
+    place."""
+    moved = 0
+    for i in range(len(want_ids)):
+        _, ia, ib = np.intersect1d(ids[i], want_ids[i], return_indices=True)
+        np.testing.assert_allclose(d[i, ia], want_d[i, ib], rtol=HOST_RTOL, atol=HOST_ATOL)
+        if np.array_equal(ids[i], want_ids[i]):
+            continue
+        moved += 1
+        kth = min(float(d[i, -1]), float(want_d[i, -1]))
+        alone = np.concatenate([np.delete(d[i], ia), np.delete(want_d[i], ib)])
+        if (alone < kth - 2 * HOST_ATOL).any():
+            raise AssertionError(f"{label}: query {i} differs beyond a boundary tie: "
+                                 f"{ids[i]} / {want_ids[i]}")
+    return moved
+
+
+def exact_tier(shard, q) -> tuple[np.ndarray, np.ndarray]:
+    """The index's exact tier on the card (the chunked scan with its f32
+    rescore: batches under 8 rows take it) for q, D_EXACT_B rows a call."""
+    parts = [shard.vector_index.search_by_vectors(q[i:i + D_EXACT_B], K)
+             for i in range(0, len(q), D_EXACT_B)]
+    return np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts])
+
+
+def shard_workload(dev, card, seed) -> dict:
+    """The Shard over the port's index at 1M objects: import, the
+    hydrated and raw read lanes, filters, deletes, the host plane, the
+    breaker, compaction and restart. -> K1's launches on the main path."""
+    from weaviate_tpu_torch.db.shard import Shard
+    from weaviate_tpu_torch.entities.filters import LocalFilter
+    from weaviate_tpu_torch.entities.schema import ClassDef, Property
+    from weaviate_tpu_torch.entities.storobj import StorObj
+    from weaviate_tpu_torch.entities.vectorindex import parse_and_validate_config
+    from weaviate_tpu_torch.ops import gmin_scan
+    from weaviate_tpu_torch.serving import robustness
+    from weaviate_tpu_torch.testing import faults
+
+    rng = np.random.default_rng(seed + 3)
+    t0 = time.perf_counter()
+    vecs = make_data(D_N, DIM, rng)
+    bucket = rng.integers(0, D_BUCKETS, D_N)
+    q_raw = queries(vecs, rng, 1)[0]
+    q_hyd = q_raw[:D_B]
+    log(f"D data: {D_N} x {DIM} vectors, tag (text, {D_TAGS} values), bucket (int, "
+        f"0-{D_BUCKETS - 1}), {BATCH} queries in {time.perf_counter() - t0:.1f} s")
+    cd = ClassDef(name="SiftDoc", properties=[Property(name="tag", data_type=["text"]),
+                                              Property(name="bucket", data_type=["int"])],
+                  vector_index_type="hnsw_tpu")
+    cfg = parse_and_validate_config("hnsw_tpu", {"distance": "l2-squared"})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_d_")
+    shard = None
+    try:
+        shard = Shard("shard0", tmp, cd, cfg, store_opts=D_STORE_OPTS)
+        t0 = time.perf_counter()
+        for s in range(0, D_N, D_IMPORT):
+            objs = [StorObj(class_name="SiftDoc", uuid=str(uuidlib.UUID(int=i + 1)),
+                            properties={"tag": f"tag{i % D_TAGS}", "bucket": int(bucket[i])},
+                            vector=vecs[i]) for i in range(s, min(s + D_IMPORT, D_N))]
+            errs = shard.put_batch(objs)
+            if any(e is not None for e in errs):
+                raise AssertionError(f"D import: {next(e for e in errs if e is not None)!r}")
+        put_s = time.perf_counter() - t0
+        shard.flush()
+        shard.store.flush_memtables()
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        if shard.object_count() != D_N or len(shard.vector_index) != D_N:
+            raise AssertionError(f"D import: {shard.object_count()} objects, "
+                                 f"{len(shard.vector_index)} vectors")
+        log(f"D import: {D_N} objects through Shard.put_batch in batches of {D_IMPORT}: "
+            f"{put_s:.1f} s, then flush and memtables to segments: {import_s:.1f} s in all, "
+            f"{D_N / import_s:.0f} objects/s; capacity {shard.vector_index.capacity}")
+
+        # K1 against its plain version on the Shard index's own store, at
+        # the shapes D's main path gives it (its own tile plan: more
+        # columns and fewer live slices than A's) and at D's batch sizes
+        snap = shard.vector_index._read_snapshot()
+        G = gmin_scan.G
+        ncols, ag = snap.capacity // G, -(-snap.n // (snap.capacity // G))
+        store3 = snap.store.view(G, ncols, DIM)
+        dead = dead_mask(snap.capacity, ncols, snap.n, np.random.default_rng(seed + 4), dev,
+                         snap.tombs)
+        biases = [(m, a, torch.where(dead, float("inf"), base).view(G, ncols))
+                  for m, a, base in (("l2", -2.0, snap.sq_norms),
+                                     ("dot", -1.0, torch.zeros_like(snap.sq_norms)))]
+        k1 = lambda q, b2, a, g: gmin_scan.group_min_scores(q, store3, b2, a, active_g=g)  # noqa: E731
+        k1_plain = lambda q, b2, a, g: gmin_scan.group_min_scores_reference(q, store3, b2, a, g)  # noqa: E731
+        log(f"D K1 on the Shard's store: ncols {ncols}, ag {ag}"
+            f"{plan_note(gmin_scan.resident_plan(DIM, ag))}")
+        max_err = check_kernel("gmin_scan f32 (Shard store)", k1, k1_plain,
+                               torch.from_numpy(q_raw).to(dev), biases, ncols, ag,
+                               sizes=(D_B, BATCH))
+        del snap, store3, dead, biases
+        torch.cuda.empty_cache()
+
+        x_dev = torch.from_numpy(vecs).to(dev)
+        gt_h = exact_topk(torch.from_numpy(q_hyd).to(dev), x_dev, K)
+        gt_rows = np.arange(0, BATCH, BATCH // N_GT)
+        gt_raw = exact_topk(torch.from_numpy(q_raw[gt_rows]).to(dev), x_dev, K)
+
+        # the main path, through the Shard's entry points
+        phase("D main path")
+        gmin_scan.launches = 0
+        lat = []
+        for _ in range(D_REPS):
+            t0 = time.perf_counter()
+            res = shard.object_vector_search(q_hyd, K)
+            lat.append(time.perf_counter() - t0)
+        ids_h = shard_doc_ids(res)
+        r_h = recall_at_k(ids_h, gt_h)
+        p50_h = float(np.median(lat))
+        log(f"D object_vector_search B={D_B} hydrated: {['%.1f ms' % (t * 1e3) for t in lat]}, "
+            f"p50 {p50_h * 1e3:.2f} ms; recall@10 {r_h:.4f} vs exact f32")
+        if r_h < RECALL_BAR or (ids_h < 0).any():
+            raise AssertionError(f"D hydrated recall@10 {r_h:.4f} < {RECALL_BAR}, or short rows")
+        if not shard.raw_plane_ready():
+            raise AssertionError("D: the raw lane is not ready (lsm_native did not build, or "
+                                 "a memtable holds writes)")
+        lat = []
+        for _ in range(D_RAW_REPS):
+            t0 = time.perf_counter()
+            packed = shard.search_raw_packed(q_raw, K)
+            lat.append(time.perf_counter() - t0)
+            if packed is None:
+                raise AssertionError("D: search_raw_packed fell back (returned None)")
+        r_raw = recall_at_k(raw_doc_ids(packed, gt_rows), gt_raw)
+        p50_raw = float(np.median(lat))
+        log(f"D search_raw_packed B={BATCH}: {['%.1f ms' % (t * 1e3) for t in lat]}, "
+            f"p50 {p50_raw * 1e3:.2f} ms ({BATCH / p50_raw:.0f} QPS); recall@10 {r_raw:.4f} "
+            f"on {N_GT} queries; {int(packed[4].sum())} images, {len(packed[0])} bytes of arena")
+        if r_raw < RECALL_BAR:
+            raise AssertionError(f"D raw-lane recall@10 {r_raw:.4f} < {RECALL_BAR}")
+        # the profiler's own host tracing slows the host half of a lane (the
+        # hydration makes many small calls), so each lane's busy share is
+        # also read against its unprofiled p50
+        prof = profile_sync_batch(lambda q: shard.search_raw_packed(q, K), q_raw, card,
+                                  "D raw lane (Shard.search_raw_packed)")
+        busy = None if prof is None else prof[1] / (p50_raw * 1e3)
+        prof_h = profile_sync_batch(lambda q: shard.object_vector_search(q, K), q_hyd, card,
+                                    "D hydrated (Shard.object_vector_search)")
+        busy_h = None if prof_h is None else prof_h[1] / (p50_h * 1e3)
+        raw_note = "not measured" if busy is None else f"{prof[1]:.2f} ms, {busy:.1%} busy"
+        hyd_note = "not measured" if busy_h is None else f"{prof_h[1]:.2f} ms, {busy_h:.1%} busy"
+        log(f"[{card}] D device ms over the unprofiled p50: raw lane {raw_note}; "
+            f"hydrated {hyd_note}")
+        # filters: one tag value (32768 rows < flatSearchCutoff 40000: the
+        # gather tier) and bucket < 500 (~524k rows: the masked scan)
+        q_f = torch.from_numpy(q_hyd).to(dev)
+        recalls = {}
+        for label, flt, allowed, tier, bar in (
+                ("tag = tag5", {"operator": "Equal", "path": ["tag"], "valueText": "tag5"},
+                 np.arange(5, D_N, D_TAGS), "gather", 0.99),
+                ("bucket < 500", {"operator": "LessThan", "path": ["bucket"], "valueInt": 500},
+                 np.flatnonzero(bucket < 500), "exact_scan", RECALL_BAR)):
+            f = LocalFilter.from_dict(flt)
+            got_tier = shard.vector_index.dispatch_tier(shard.vector_index._read_snapshot(),
+                                                         shard.build_allow_list(f))
+            res = shard.object_vector_search(q_hyd, K, f)
+            ids_f = shard_doc_ids(res)
+            gt_f = allowed[exact_topk(q_f, x_dev[torch.from_numpy(allowed).to(dev)], K)]
+            r_f = recall_at_k(ids_f, gt_f)
+            recalls[label] = r_f
+            log(f"D filter {label}: {len(allowed)} allowed, tier {got_tier}; recall@10 "
+                f"{r_f:.4f} (bar {bar})")
+            if got_tier != tier or r_f < bar or not np.isin(ids_f[ids_f >= 0], allowed).all():
+                raise AssertionError(f"D filter {label}: tier {got_tier}, recall {r_f:.4f}, or "
+                                     "an id outside the allowList")
+        gone = np.unique(ids_h[:, 0])
+        for d in gone.tolist():
+            if not shard.delete_object(str(uuidlib.UUID(int=d + 1))):
+                raise AssertionError(f"D: delete_object of doc {d} found nothing")
+        ids_d = shard_doc_ids(shard.object_vector_search(q_hyd, K))
+        if np.isin(ids_d, gone).any() or shard.object_count() != D_N - len(gone):
+            raise AssertionError("D: a deleted object came back, or the count is off")
+        launches = gmin_scan.launches
+        log(f"D deleted {len(gone)} objects through delete_object: none returned; "
+            f"K1 launches on the main path {launches}")
+        if launches < D_REPS + D_RAW_REPS:
+            raise AssertionError(f"D: {launches} K1 launches on the main path")
+
+        # the host plane against the card's exact tier
+        phase("D host plane")
+        q64 = q_hyd[:D_HOST_B]
+        t0 = time.perf_counter()
+        ids_host, d_host = shard.vector_index.search_by_vectors_host(q64, K)
+        host_s = time.perf_counter() - t0
+        ids_ex, d_ex = exact_tier(shard, q64)
+        ids_g, _ = shard.vector_index.search_by_vectors(q64, K)
+        moved = same_neighbours("D host plane", ids_host, d_host, ids_ex, d_ex)
+        log(f"D search_by_vectors_host B={D_HOST_B}: {host_s:.2f} s (the host copy of the "
+            f"store included); the same ids as the card's exact tier with distances within "
+            f"rtol {HOST_RTOL}, atol {HOST_ATOL} ({moved} of {D_HOST_B} rows ordered "
+            f"differently within that rounding); id overlap with the B={D_HOST_B} fast scan "
+            f"{recall_at_k(ids_g.astype(np.int64), ids_host.astype(np.int64)):.4f}")
+        shard.vector_index.release_host_fallback_cache()
+
+        # the breaker: device faults at the dispatch under db.shard.search
+        phase("D breaker")
+        q4 = q_hyd[:D_EXACT_B]
+        want = shard.object_vector_search(q4, K)
+        want_ids, want_d = shard_doc_ids(want), shard_dists(want)
+
+        def check_host(res, what):
+            same_neighbours(f"D breaker ({what})", shard_doc_ids(res), shard_dists(res),
+                            want_ids, want_d)
+
+        br = robustness.configure_breaker(robustness.CircuitBreaker(
+            failure_threshold=3, reset_timeout_s=0.2))
+        inj = faults.configure(faults.FaultInjector())
+        try:
+            inj.plan("index.gpu.dispatch", "device_error", times=None)
+            trips = 0
+            while br.state() != robustness.STATE_OPEN and trips < 6:
+                check_host(shard.object_vector_search(q4, K), "device error")
+                trips += 1
+            if br.state() != robustness.STATE_OPEN:
+                raise AssertionError("D breaker: injected device errors did not trip it")
+            check_host(shard.object_vector_search(q4, K), "open")
+            if shard.vector_index._host_rows_cache is None:
+                raise AssertionError("D breaker: the open breaker's host plane held no host rows")
+            inj.clear()
+            time.sleep(0.3)
+            probe = shard_doc_ids(shard.object_vector_search(q4, K))
+            if (not np.array_equal(probe, want_ids) or br.state() != robustness.STATE_CLOSED
+                    or shard.vector_index._host_rows_cache is not None):
+                raise AssertionError("D breaker: it did not close after recovery, or the host "
+                                     "rows cache was kept")
+        finally:
+            faults.unconfigure(inj)
+            robustness.unconfigure_breaker(br)
+        log(f"D breaker: {trips} device errors injected at index.gpu.dispatch (under "
+            f"db.shard.search) opened it, each answered by the host plane; open, the host plane "
+            f"served; after recovery a probe closed it and released the host rows cache")
+
+        # compaction after deleting 10% of the objects
+        phase("D compact")
+        victims = rng.choice(np.setdiff1d(np.arange(D_N), gone), D_N // 10, replace=False)
+        t0 = time.perf_counter()
+        for d in victims.tolist():
+            shard.delete_object(str(uuidlib.UUID(int=d + 1)))
+        del_s = time.perf_counter() - t0
+        before_ex = exact_tier(shard, q64)
+        before_h = shard.object_vector_search(q_hyd, K)
+        t0 = time.perf_counter()
+        shard.vector_index.compact()
+        torch.cuda.synchronize()
+        compact_s = time.perf_counter() - t0
+        after_ex = exact_tier(shard, q64)
+        after_h = shard.object_vector_search(q_hyd, K)
+        if not np.array_equal(after_ex[0], before_ex[0]):
+            raise AssertionError("D compact: the surviving docs' answers changed")
+        np.testing.assert_allclose(after_ex[1], before_ex[1], rtol=1e-6)
+        overlap = recall_at_k(shard_doc_ids(after_h), shard_doc_ids(before_h))
+        health = shard.debug_health()["vector_index"]
+        log(f"D compact: {len(victims)} delete_object calls {del_s:.1f} s; compact "
+            f"{compact_s:.2f} s "
+            f"({health['slots']} slots, {health['live']} live, {health['tombstones']} tombstones "
+            f"after); exact-tier answers for {D_HOST_B} queries equal before and after; B={D_B} "
+            f"fast-scan overlap {overlap:.4f}")
+        if health["tombstones"] != 0 or overlap < 0.99:
+            raise AssertionError(f"D compact: {health['tombstones']} tombstones, overlap "
+                                 f"{overlap:.4f}")
+
+        # restart: a new Shard on the same path
+        phase("D restart")
+        want_ids, want_d = shard_doc_ids(after_h), shard_dists(after_h)
+        shard.shutdown()
+        shard = None
+        t0 = time.perf_counter()
+        shard = Shard("shard0", tmp, cd, cfg, store_opts=D_STORE_OPTS)
+        res = shard.object_vector_search(q_hyd, K)
+        restart_s = time.perf_counter() - t0
+        if not np.array_equal(shard_doc_ids(res), want_ids):
+            raise AssertionError("D restart: answers differ from before the restart")
+        np.testing.assert_allclose(shard_dists(res), want_d, rtol=1e-6)
+        log(f"D restart: LSM reopen and vector.log replay of {len(shard.vector_index)} vectors, "
+            f"then the B={D_B} search answered the same, in {restart_s:.2f} s")
+        log(f"[{card}] D end to end ({D_N} objects, k={K}): import {D_N / import_s:.0f} "
+            f"objects/s; hydrated B={D_B} p50 {p50_h * 1e3:.2f} ms recall@10 {r_h:.4f}; raw "
+            f"lane B={BATCH} p50 {p50_raw * 1e3:.2f} ms recall@10 {r_raw:.4f}; busy raw "
+            f"{'not measured' if busy is None else f'{busy:.1%}'}, hydrated "
+            f"{'not measured' if busy_h is None else f'{busy_h:.1%}'}; filtered "
+            f"{recalls['tag = tag5']:.4f} (gather) / {recalls['bucket < 500']:.4f} (masked); "
+            f"compact {compact_s:.2f} s; restart {restart_s:.2f} s")
+        del x_dev
+    finally:
+        if shard is not None:
+            shard.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": max_err}
+
+
+# -- the busy-share comparison -------------------------------------------------------
+
+def busy_share(card, seed) -> dict:
+    """A's and B1's sync p50 and device-busy share alone (`--busy-share`):
+    the same data and configurations as workloads A and B1, through only
+    the entry points every version of the port has (`new_vector_index`,
+    `add_batch`, `update_user_config`, `search_by_vectors`), so that the
+    index's host path of two checkouts compares on one card in turns. Per
+    workload: the sync p50 of 5 batches after one warm-up, then BUSY_REPS
+    profiled batches. -> {label: numbers}"""
+    from weaviate_tpu_torch.entities.vectorindex import parse_and_validate_config
+    from weaviate_tpu_torch.index import new_vector_index
+
+    out = {}
+    for label, s, dim, conf in (("A", seed, DIM, {"distance": "l2-squared"}),
+                                ("B1", seed + 1, PQ_DIM, pq_conf())):
+        rng = np.random.default_rng(s)
+        vecs = make_data(N, dim, rng)
+        q = queries(vecs, rng, 1)[0]
+        tmp = tempfile.mkdtemp(prefix=f"chip_smoke_busy_{label}_")
+        try:
+            if "pq" in conf:
+                idx = pq_index(label, conf, tmp, vecs, declared=False)[0]
+            else:
+                idx = new_vector_index(parse_and_validate_config("hnsw_tpu", conf), tmp)
+                idx.add_batch(np.arange(N), vecs)
+            _, p50, _, _ = sync_batches(idx, q, 6)
+            prof = [profile_sync_batch(lambda b: idx.search_by_vectors(b, K), q, card, label)
+                    for _ in range(BUSY_REPS)]
+            if any(p is None for p in prof):
+                raise AssertionError(f"busy share {label}: the profiler saw no device time")
+            out[label] = {"sync_p50_ms": p50 * 1e3, "busy": [p[0] for p in prof],
+                          "device_ms": [p[1] for p in prof]}
+            log(f"[{card}] {label} busy share: sync p50 {p50 * 1e3:.2f} ms; profiled batches "
+                f"device {['%.2f ms' % p[1] for p in prof]}, busy "
+                f"{['%.1f%%' % (100 * p[0]) for p in prof]}")
+            idx.drop()
+            del idx
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        del vecs
+        torch.cuda.empty_cache()
+    return out
 
 
 # -- workload C: the stage profiler at full width --------------------------------
@@ -929,11 +1481,22 @@ def profiler_phase(dev, card, seed) -> list[dict]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--busy-share", metavar="CHECKOUT",
+                    help="run only A's and B1's sync p50 and busy share (BUSY_REPS "
+                         "profiled batches each), with weaviate_tpu_torch imported from CHECKOUT, a "
+                         "checkout of the repository (`.` for this one; another, such as a "
+                         "parent commit unpacked with `git archive`, builds its kernels "
+                         "into its own build/)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
-    import weaviate_tpu_torch  # noqa: F401 — fails here without the package beside the script
+    if args.busy_share:
+        checkout = os.path.abspath(args.busy_share)
+        sys.path.insert(0, checkout)
+    import weaviate_tpu_torch  # fails here without the package beside the script
+    if args.busy_share and not weaviate_tpu_torch.__file__.startswith(checkout + os.sep):
+        raise RuntimeError(f"imported {weaviate_tpu_torch.__file__}, not from {checkout}")
 
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     dev = torch.device("cuda", 0)
@@ -955,6 +1518,14 @@ def main() -> int:
     phase("build")
     build_kernels()
 
+    if args.busy_share:
+        phase(f"busy share of {checkout}")
+        out = busy_share(card, args.seed)
+        faulthandler.cancel_dump_traceback_later()
+        print(json.dumps({"checkout": checkout, "card": card, "reps": BUSY_REPS, **out}),
+              flush=True)
+        return 0
+
     # 3-5. the workloads
     t0 = time.perf_counter()
     phase("workload A")
@@ -965,11 +1536,26 @@ def main() -> int:
     pq_rows = pq_workload(dev, card, args.seed)
     log(f"workload B: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    phase("workload A-bf16")
+    a16 = headline_bf16(dev, card, args.seed)
+    log(f"workload A-bf16: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase("workload C")
     layout_rows = profiler_phase(dev, card, args.seed)
-    log(f"workload C: {time.perf_counter() - t0:.1f} s; total {time.perf_counter() - t_start:.1f} s")
+    log(f"workload C: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase("workload D")
+    d_row = shard_workload(dev, card, args.seed)
+    log(f"workload D: {time.perf_counter() - t0:.1f} s; "
+        f"total {time.perf_counter() - t_start:.1f} s")
 
-    # 6. result lines
+    # 6. result lines: K1's launches include D's (the Shard's main path),
+    # K1-bf16's the bf16-store run's
+    k1_f32["launches"] += d_row["launches"]
+    k1_f32["max_abs_err"] = max(k1_f32["max_abs_err"], d_row["max_abs_err"])
+    k1_bf16 = pq_rows[0]
+    k1_bf16["launches"] += a16["launches"]
+    k1_bf16["max_abs_err"] = max(k1_bf16["max_abs_err"], a16["max_abs_err"])
     faulthandler.cancel_dump_traceback_later()
     log(card)
     print(json.dumps({"kernels": [k1_f32, *pq_rows, *layout_rows]}), flush=True)

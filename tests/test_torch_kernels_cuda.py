@@ -385,3 +385,112 @@ def test_staged_dispatch_on_card_equals_fused(card, tmp_path):
             np.testing.assert_array_equal(staged[1], fused[1])
     finally:
         gpu.set_fused_enabled(None)
+
+
+@pytest.mark.cuda
+def test_real_cuda_out_of_memory_is_a_device_error(card):
+    """An allocation the card cannot hold raises torch.OutOfMemoryError, and
+    the breaker's classifier counts it as a device fault."""
+    from weaviate_tpu_torch.serving import robustness
+
+    with pytest.raises(torch.OutOfMemoryError) as err:
+        torch.empty(1 << 50, dtype=torch.uint8, device=card)
+    assert robustness.is_device_error(err.value)
+
+
+# words of the CUDA runtime's own message for each code of
+# _kernels.DEVICE_FAULT_CODES (cudaGetErrorString), and for codes of a
+# refused call, which are not in it
+_FAULT_WORDS = {2: "memory", 3: "initialization", 46: "unavailable", 100: "no cuda-capable",
+                214: "ecc", 220: "nvlink", 700: "illegal memory access", 702: "timed out",
+                709: "destroyed", 710: "assert", 714: "stack", 715: "illegal instruction",
+                716: "misaligned", 717: "address space", 718: "program counter",
+                719: "launch failure"}
+_CALL_WORDS = {1: "invalid argument", 9: "invalid configuration", 701: "too many resources"}
+
+
+@pytest.mark.cuda
+def test_kernel_error_codes_are_the_runtimes_card_faults(card, monkeypatch):
+    """DEVICE_FAULT_CODES are the runtime's codes of card faults, read back
+    through the kernel library's own cudaGetErrorString; a launch the
+    kernel refuses (a tile of 512 rows) raises KernelCallError, which is
+    not a device error."""
+    from weaviate_tpu_torch.serving import robustness
+
+    lib = gmin_scan._gmin_lib()
+    assert set(_FAULT_WORDS) == _kernels.DEVICE_FAULT_CODES
+    for words, fault in ((_FAULT_WORDS, True), (_CALL_WORDS, False)):
+        for rc, word in words.items():
+            text = lib.gmin_scan_error_string(rc).decode()
+            assert word in text.lower(), (rc, text)
+            assert (rc in _kernels.DEVICE_FAULT_CODES) is fault
+    bad = gmin_scan.resident_plan(128, 16)._replace(scg=32)
+    monkeypatch.setattr(profile_gmin, "layout_plan", lambda d, groups: bad)
+    with pytest.raises(_kernels.KernelCallError, match="launch failed") as err:
+        profile_gmin.nt_scores(torch.zeros((8, 128), device=card),
+                               torch.zeros((16, 128, 64), device=card),
+                               torch.zeros((16, 64), device=card), -1.0)
+    assert not robustness.is_device_error(err.value)
+
+
+@pytest.mark.cuda
+def test_pinned_staging_buffer_is_not_reused_before_its_fetch(card, tmp_path):
+    """Two back-to-back async dispatches of different queries each get
+    their own answer: the second checkout does not receive the buffer the
+    first upload may still read. The pool's buffers are pinned and go back
+    only after the fetches."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((20000, 64)).astype(np.float32)
+    q1, q2 = (rng.standard_normal((16, 64)).astype(np.float32) for _ in range(2))
+    idx = new_vector_index(vi.parse_and_validate_config("hnsw_tpu", {"distance": "l2-squared"}),
+                           str(tmp_path / "i"), device=card)
+    idx.add_batch(np.arange(len(x)), x)
+    want1, want2 = idx.search_by_vectors(q1, 10), idx.search_by_vectors(q2, 10)
+    parked = idx._stage_free[(16, 64)]
+    assert len(parked) == 1 and parked[0].buf.is_pinned()
+    f1 = idx.search_by_vectors_async(q1, 10)  # takes the parked buffer
+    assert idx._stage_free[(16, 64)] == []
+    f2 = idx.search_by_vectors_async(q2, 10)  # must not get it back
+    got2, got1 = f2(), f1()
+    for got, want in ((got1, want1), (got2, want2)):
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    assert len(idx._stage_free[(16, 64)]) == 2
+    assert idx.health()["memory"]["host_components"]["stage_buffers"] == 2 * 16 * 64 * 4
+    idx.drop()
+    assert idx._stage_free == {}
+
+
+@pytest.mark.cuda
+def test_bf16_store_k1_matches_plain_version_through_the_index(card, tmp_path):
+    """`storeDtype: bfloat16`: the index's store is bf16 on the card, its
+    search launches K1's bf16 filler on the store itself, and that kernel
+    equals its plain version (rtol 1e-4, atol 1e-3); the card's answer
+    matches the same index on the CPU."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((40000, 128)).astype(np.float32)
+    q = rng.standard_normal((64, 128)).astype(np.float32)
+    cfg = vi.parse_and_validate_config("hnsw_tpu", {"distance": "l2-squared",
+                                                    "storeDtype": "bfloat16"})
+    idx = {dev: new_vector_index(cfg, str(tmp_path / dev), device=dev) for dev in ("cuda", "cpu")}
+    for i in idx.values():
+        i.add_batch(np.arange(len(x)), x)
+    snap = idx["cuda"]._read_snapshot()
+    assert snap.store.dtype == torch.bfloat16
+    ncols = snap.capacity // gmin_scan.G
+    ag = -(-snap.n // ncols)
+    bias2, alpha = gmin_scan.scan_bias(snap.tombs, snap.n, snap.sq_norms, None, False,
+                                       vi.DISTANCE_L2)
+    store3 = snap.store.view(gmin_scan.G, ncols, 128)
+    qd = torch.from_numpy(q).to(card)
+    got = gmin_scan.group_min_scores(qd, store3, bias2, alpha, active_g=ag)
+    want = gmin_scan.group_min_scores_reference(qd, store3, bias2, alpha, ag)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    before = gmin_scan.launches
+    ids, dists = idx["cuda"].search_by_vectors(q, 10)
+    assert gmin_scan.launches == before + 1
+    ids_c, dists_c = idx["cpu"].search_by_vectors(q, 10)
+    np.testing.assert_array_equal(ids, ids_c)
+    np.testing.assert_allclose(dists, dists_c, rtol=1e-5, atol=1e-5)

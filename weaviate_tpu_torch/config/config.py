@@ -1,6 +1,6 @@
-"""The port's copy of the serving knobs the compressed tiers read, and of
-the environment-boolean parser (twin of
-`weaviate_tpu/config/config.py:29,57,63,66`).
+"""The port's copy of the serving knobs the compressed tiers read, of the
+device store dtype's environment default, and of the environment-boolean
+parser (twin of `weaviate_tpu/config/config.py:29,57,63,66,553,580,831`).
 
 In the JAX package a recall-guarded controller may step each budget down
 its ladder; without one installed, the index reads the top bucket. The
@@ -8,6 +8,8 @@ port has no control plane, so each cap is its ladder's top bucket.
 """
 
 from typing import Mapping
+
+from weaviate_tpu_torch.entities.vectorindex import STORE_DTYPES
 
 # fast-scan candidate depth of the chunked scan: max(4k, 32) capped at the
 # top bucket
@@ -29,3 +31,13 @@ def _bool(env: Mapping[str, str], key: str, default: bool = False) -> bool:
     if v is None:
         return default
     return v.strip().lower() in ("true", "enabled", "on", "1")
+
+
+def store_dtype_from_env(env: Mapping[str, str]) -> str:
+    """TPU_STORE_DTYPE (float32 by default), checked as the reference's
+    Config.validate checks it; a class's `storeDtype` is what an index
+    reads."""
+    v = env.get("TPU_STORE_DTYPE", "float32")
+    if v not in STORE_DTYPES:
+        raise ValueError("STORE_DTYPE must be float32|bfloat16")
+    return v

@@ -37,6 +37,10 @@ DISTANCES = (
     DISTANCE_HAMMING,
 )
 
+# the device store's element types (`storeDtype`): bfloat16 halves the
+# store's bytes, and K1 scans it with its bf16 filler
+STORE_DTYPES = ("float32", "bfloat16")
+
 # the metrics with a matmul form: the group-min scan and the fast-scan
 # rescore serve only these
 MATMUL_DISTANCES = (DISTANCE_L2, DISTANCE_DOT, DISTANCE_COSINE)
@@ -115,7 +119,7 @@ class HnswUserConfig:
     flat_search_cutoff: int = DEFAULT_FLAT_SEARCH_CUTOFF
     distance: str = DISTANCE_COSINE
     pq: PQConfig = field(default_factory=PQConfig)
-    store_dtype: str = "float32"
+    store_dtype: str = "float32"  # device store dtype: float32 | bfloat16
     exact_topk: bool = False  # skip the group-min fast scan: exact chunked scan
 
     def IndexType(self) -> str:  # discriminator parity (config.go:69-71)
@@ -154,11 +158,9 @@ class HnswUserConfig:
             raise ConfigValidationError("efConstruction must be >= 4")
         if self.ef != -1 and self.ef < 1:
             raise ConfigValidationError("ef must be -1 (dynamic) or >= 1")
-        if self.store_dtype != "float32":
-            # the JAX package also takes "bfloat16"; the port's store is
-            # float32 only until its bf16 store lands
+        if self.store_dtype not in STORE_DTYPES:
             raise ConfigValidationError(
-                f"storeDtype must be 'float32' in this port, got {self.store_dtype!r}"
+                f"storeDtype must be 'float32' or 'bfloat16', got {self.store_dtype!r}"
             )
         if self.pq.enabled:
             validate_pq(self.pq, self.distance)

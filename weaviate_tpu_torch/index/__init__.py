@@ -18,10 +18,11 @@ _LATER = {
 
 
 def new_vector_index(config, shard_path: str, shard_name: str = "", device=None,
-                     persist: bool = True):
+                     persist: bool = True, metrics=None, class_name: str = ""):
     """Factory keyed on UserConfig.IndexType() (config.go:69-71). `device`
     defaults to the CUDA card; without one this raises unless the caller
-    passes device="cpu"."""
+    passes device="cpu". `metrics` and `class_name` label the index's
+    gauges (the shard passes its own)."""
     t = config.IndexType()
     if config.skip or t == "noop":
         from weaviate_tpu_torch.index.noop import NoopIndex
@@ -31,7 +32,7 @@ def new_vector_index(config, shard_path: str, shard_name: str = "", device=None,
         from weaviate_tpu_torch.index.gpu import GpuVectorIndex
 
         return GpuVectorIndex(config, shard_path, shard_name, device=device,
-                              persist=persist)
+                              persist=persist, metrics=metrics, class_name=class_name)
     if t in _LATER:
         raise ValueError(f"vectorIndexType {t!r} is not ported yet: {_LATER[t]}")
     raise ValueError(f"unknown vector index type {t!r}")

@@ -1,6 +1,6 @@
 """The GPU vector index ("hnsw_tpu" / "flat"): the port of
 `weaviate_tpu/index/tpu.py`, single device, uncompressed and
-PQ-compressed.
+PQ-compressed, with an f32 or a bf16 store (`storeDtype`).
 
 The interface contract is the reference's (vector_index.go:23-40:
 (vector, k, allowList) -> (ids, dists)); the device does the work in
@@ -16,7 +16,11 @@ batches:
   metrics run the chunked exact scan (`_search_full`);
 - allowLists below `flatSearchCutoff` take the gather tier: only the
   allowed rows are scored (flat_search.go:19 semantics);
-- each dispatch ends in ONE device->host transfer. With the fused-dispatch
+- queries go up through a pool of staging buffers (pinned host memory on
+  the card, uploaded without blocking on the dispatch's stream); a buffer
+  goes back to the pool only after its dispatch's fetch, so a later
+  checkout never overwrites rows the copy has not read;
+- each dispatch ends in ONE device->host transfer (`_fetch_packed`). With the fused-dispatch
   toggle on (the default) it already carries final doc ids
   (ops/topk.translate_pack); off (`FUSED_DISPATCH_ENABLED=false` or
   `set_fused_enabled(False)`, the staged dispatch), it carries slot
@@ -66,7 +70,14 @@ new tensors.
 Durability: an append-only binary vector log per shard (add/delete
 records), replayed at startup, in the JAX package's on-disk format
 (magic WTVL, v2, per-record checksums), so a shard written by either
-package restores in the other.
+package restores in the other. `compact()` drops tombstoned slots and
+rewrites the log; under PQ it re-encodes against the codebooks it has.
+
+The shard's hooks: the host fallback plane the device circuit breaker
+serves from (`search_by_vectors_host`, exact numpy brute force over the
+published snapshot), the per-thread dispatch facts the shard pops for its
+traces and the quality auditor (`pop_read_lock_wait`,
+`pop_dispatch_shape`, `pop_audit_snapshot`), and `health()`.
 """
 
 from __future__ import annotations
@@ -75,6 +86,7 @@ import logging
 import os
 import struct
 import threading
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -88,6 +100,7 @@ from weaviate_tpu_torch.config.config import (PQ4_FUNNEL_C_BUCKETS,
 from weaviate_tpu_torch.device import resolve_device
 from weaviate_tpu_torch.entities import vectorindex as vi
 from weaviate_tpu_torch.index.interface import AllowList, VectorIndex
+from weaviate_tpu_torch.monitoring import costmodel, incidents, memory, quality, tracing
 from weaviate_tpu_torch.ops import gmin_scan, pq4, pq_gmin
 from weaviate_tpu_torch.ops.distances import DISTANCE_FNS
 from weaviate_tpu_torch.ops.topk import (bitmap_to_mask, merge_top_k, pack_topk,
@@ -95,6 +108,7 @@ from weaviate_tpu_torch.ops.topk import (bitmap_to_mask, merge_top_k, pack_topk,
                                          translate_pack, unpack_fused, unpack_topk)
 from weaviate_tpu_torch.storage.bitmap import (Bitmap, allowed_mask,
                                                pack_allow_words)
+from weaviate_tpu_torch.testing import faults, sanitizers
 
 _log = logging.getLogger(__name__)
 
@@ -192,6 +206,44 @@ def _valid_slots(tombs, n, base, chunk, allow_words, use_allow):
     if use_allow:
         valid = valid & bitmap_to_mask(allow_words[base // 32: (base + chunk) // 32], chunk)
     return valid
+
+
+class _PinnedStage:
+    """A pinned host staging buffer of the query pool and the CUDA event
+    recorded after its last upload was enqueued."""
+
+    __slots__ = ("buf", "uploaded")
+
+    def __init__(self, buf: torch.Tensor):
+        self.buf = buf
+        self.uploaded: Optional[torch.cuda.Event] = None
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.buf.shape)
+
+    @property
+    def nbytes(self) -> int:
+        return self.buf.nbytes
+
+
+def _fetch_packed(packed: torch.Tensor, shape=None) -> np.ndarray:
+    """The ONE blocking device->host fetch of a dispatch's finalize (on the
+    card it waits for the dispatch's stream, the upload of its queries
+    included). With a perf shape attached (tracer up), stamps the fetch
+    duration as the ledger's `device` stage; without one this is exactly
+    the copy. The sanitizer's device-sync plane patches this function."""
+    if shape is None:
+        return packed.cpu().numpy()
+    t0 = time.perf_counter()
+    out = packed.cpu().numpy()
+    shape.fetches += 1  # the fused-dispatch invariant counts these
+    shape.t_fetch = time.perf_counter()
+    shape.device_ms = (shape.t_fetch - t0) * 1000.0
+    # duty-cycle anchor: the in-flight interval ends HERE, not at the
+    # perf window's record call (hydration runs in between)
+    shape.t_fetch_mono = time.monotonic()
+    return out
 
 
 def _pack(top: torch.Tensor, idx: torch.Tensor, s2d: Optional[torch.Tensor]) -> torch.Tensor:
@@ -560,19 +612,24 @@ class VectorLog:
         v = np.ascontiguousarray(vector, dtype=np.float32)
         self._f.write(self._enc_add(doc_id, v))
 
-    def append_add_batch(self, doc_ids: np.ndarray, vectors: np.ndarray) -> None:
-        """Vectorized bulk append: one write() for the whole batch, with the
-        per-record checksums computed as two numpy row-sums."""
+    @staticmethod
+    def _enc_add_batch(doc_ids: np.ndarray, vectors: np.ndarray) -> bytes:
+        """ADD records of a whole batch, the bytes _enc_add gives each row,
+        with the per-record checksums computed as two numpy row-sums."""
         n, dim = vectors.shape
         rec_len = 17 + 4 * dim
         buf = np.zeros((n, rec_len), np.uint8)
         buf[:, 0] = _LOG_ADD
-        buf[:, 1:9] = doc_ids.astype("<u8").view(np.uint8).reshape(n, 8)
+        buf[:, 1:9] = np.asarray(doc_ids).astype("<u8").view(np.uint8).reshape(n, 8)
         buf[:, 9:13] = np.frombuffer(struct.pack("<I", dim), np.uint8)
         buf[:, 17:] = np.ascontiguousarray(vectors, dtype="<f4").view(np.uint8).reshape(n, 4 * dim)
         sums = buf[:, :13].sum(axis=1, dtype=np.uint64) + buf[:, 17:].sum(axis=1, dtype=np.uint64)
         buf[:, 13:17] = (sums & 0xFFFFFFFF).astype("<u4").view(np.uint8).reshape(n, 4)
-        self._f.write(buf.tobytes())
+        return buf.tobytes()
+
+    def append_add_batch(self, doc_ids: np.ndarray, vectors: np.ndarray) -> None:
+        """Vectorized bulk append: one write() for the whole batch."""
+        self._f.write(self._enc_add_batch(doc_ids, vectors))
 
     def append_delete(self, doc_id: int) -> None:
         head = struct.pack("<BQ", _LOG_DELETE, doc_id)
@@ -745,14 +802,14 @@ class VectorLog:
                 if off is None:
                     return
 
-    def rewrite(self, entries) -> None:
-        """Condense: atomically rewrite the log with only live entries."""
+    def rewrite(self, doc_ids: np.ndarray, vectors: np.ndarray) -> None:
+        """Condense: atomically rewrite the log with only the live entries
+        ([n] doc ids, [n, D] f32 rows), encoded in runs of 65536 records."""
         tmp = self.path + ".tmp"
         with open(tmp, "wb") as f:
             f.write(_LOG_MAGIC + struct.pack("<H", _LOG_VERSION))
-            for doc_id, vec in entries:
-                v = np.ascontiguousarray(vec, dtype=np.float32)
-                f.write(self._enc_add(doc_id, v))
+            for s in range(0, len(doc_ids), 65536):
+                f.write(self._enc_add_batch(doc_ids[s: s + 65536], vectors[s: s + 65536]))
             f.flush()
             os.fsync(f.fileno())
         self._f.close()
@@ -802,6 +859,16 @@ class IndexSnapshot:
 
 
 class GpuVectorIndex(VectorIndex):
+    # the async dispatch path handles filtered searches, every compressed
+    # tier and the gather tier (everything rides the snapshot two-phase
+    # enqueue/finalize pipeline): the shard keys off this
+    async_supports_filters = True
+    # staging buffers parked per (padded batch, dim)
+    _STAGE_POOL_CAP = 4
+    # rows per host-scan chunk: bounds the work between deadline checks
+    # (and the [B, chunk, D] broadcast of the non-matmul metrics)
+    _HOST_SCAN_CHUNK = 65536
+
     def __init__(
         self,
         config: vi.HnswUserConfig,
@@ -809,19 +876,31 @@ class GpuVectorIndex(VectorIndex):
         shard_name: str = "",
         device=None,
         persist: bool = True,
+        metrics=None,
+        class_name: str = "",
     ):
         self.config = config
         self.metric = config.distance
         self.shard_path = shard_path
         self.shard_name = shard_name
+        # set before _restore: replay-time metrics must carry the right label
+        self.class_name = class_name
+        self.metrics = metrics
         self.device = resolve_device(device)
-        self._lock = threading.RLock()
+        # the store's element type (`storeDtype`): every write, growth,
+        # carried state and rebuild keeps it; row norms stay those of the
+        # f32 rows
+        self.dtype = torch.bfloat16 if config.store_dtype == "bfloat16" else torch.float32
+        # the lock hierarchy (tools/graftsan/lock_hierarchy.json) names the
+        # single-device index's locks index.tpu*: the port's index takes
+        # the same places in it, so the sanitizers hold it to the same order
+        self._lock = sanitizers.register_lock(threading.RLock(), "index.tpu")
 
         self.dim: Optional[int] = None
         self.capacity = 0
         self.n = 0  # high-water slot count (includes tombstoned slots)
         self.live = 0
-        self._store: Optional[torch.Tensor] = None     # [capacity, D] f32
+        self._store: Optional[torch.Tensor] = None     # [capacity, D] self.dtype
         self._sq_norms: Optional[torch.Tensor] = None  # [capacity] f32 (l2)
         self._tombs: Optional[torch.Tensor] = None     # [capacity] bool
         self._s2d_dev: Optional[torch.Tensor] = None   # [capacity] int64, -1 unwritten
@@ -833,6 +912,28 @@ class GpuVectorIndex(VectorIndex):
         self._snap_gen = 0
         self._staged_gen = 0
         self._published_gen = -1
+        # monotonic stamp of the OLDEST staged-but-unpublished mutation
+        # (ledger staged-publish lag; None = nothing staged / ledger off)
+        self._staged_t0: Optional[float] = None
+        # per-thread facts of the last dispatch: the snapshot read's lock
+        # wait, the perf shape, the auditor's snapshot pin
+        self._read_local = threading.local()
+        self._inflight = 0  # dispatches between enqueue and finalize
+        self._inflight_lock = sanitizers.register_lock(threading.Lock(), "index.tpu.inflight")
+        self._inflight_gauge = None  # resolved lazily
+        # query staging buffers, a small free-list per (padded batch, dim):
+        # pinned host tensors (_PinnedStage) on the card, numpy arrays on
+        # the CPU
+        self._stage_free: dict[tuple[int, int], list] = {}
+        self._stage_lock = sanitizers.register_lock(threading.Lock(), "index.tpu.stage_pool")
+        # host f32 copy of the store (+ its row sq-norms) for the breaker's
+        # fallback plane (search_by_vectors_host), built once per snapshot
+        # generation — (gen, rows, sq_norms)
+        self._host_rows_cache: Optional[tuple[int, np.ndarray, np.ndarray]] = None
+        # per-stage funnel survivor accounting for health()["pq"]
+        self._pq4_lock = sanitizers.register_lock(threading.Lock(), "index.tpu.pq4")
+        self._pq4_stats = {"dispatches": 0, "stage1_rows": 0,
+                           "stage2_survivors": 0, "stage3_survivors": 0}
         # staging buffer keyed by doc_id: a re-add of a staged doc replaces it
         self._pending: dict[int, np.ndarray] = {}
         self._pending_tombs: list[int] = []
@@ -859,6 +960,10 @@ class GpuVectorIndex(VectorIndex):
         self._pq_path = os.path.join(shard_path, "pq.npz")
         self._pq4_path = os.path.join(shard_path, "pq4.npz")
         self._restoring = False
+        # host-memory provider (monitoring/memory.py): the slot/tombstone
+        # mirrors, PQ host rows, staged rows, the breaker's fallback cache
+        # and the staging pool become /debug/memory host components
+        memory.register_host_provider(self, memory.index_host_components)
         self._log = VectorLog(os.path.join(shard_path, "vector.log")) if persist else None
         if self._log is not None:
             self._restore()
@@ -904,12 +1009,13 @@ class GpuVectorIndex(VectorIndex):
         self.dim = dim
         self.capacity = _MIN_CAPACITY
         dev = self.device
-        self._store = torch.zeros((self.capacity, dim), dtype=torch.float32, device=dev)
+        self._store = torch.zeros((self.capacity, dim), dtype=self.dtype, device=dev)
         self._sq_norms = torch.zeros(self.capacity, dtype=torch.float32, device=dev)
         self._tombs = torch.zeros(self.capacity, dtype=torch.bool, device=dev)
         self._s2d_dev = torch.full((self.capacity,), -1, dtype=torch.int64, device=dev)
         self._slot_to_doc = np.full(self.capacity, -1, dtype=np.int64)
         self._host_tombs = np.zeros(self.capacity, dtype=bool)
+        self._stamp_memory()
 
     def _ensure_capacity(self, needed: int) -> None:
         if self._store is None and self._codes is None:
@@ -919,6 +1025,7 @@ class GpuVectorIndex(VectorIndex):
             cap *= 2  # geometric growth (maintainance.go:31)
         if cap == self.capacity:
             return
+        faults.fire("index.gpu.alloc")
         if self.compressed:
             self._codes = _grow(self._codes, cap, 0)
             self._recon_norms = _grow(self._recon_norms, cap, 0.0)
@@ -942,6 +1049,10 @@ class GpuVectorIndex(VectorIndex):
         ht[: self.capacity] = self._host_tombs
         self._host_tombs = ht
         self.capacity = cap
+        led = memory.get_ledger()
+        if led is not None:
+            led.note_write_shape(("grow", cap, self.dim or 0, self.compressed))
+        self._stamp_memory()
 
     def _write_block(self, rows: np.ndarray, start: int) -> None:
         """Land [count, D] f32 rows at slots [start, start+count), in
@@ -949,9 +1060,10 @@ class GpuVectorIndex(VectorIndex):
         chunk writes do (so both packages reach the same capacity). The
         copy is in place: every slot written is >= self.n (module
         docstring). Row norms are summed in f64 and rounded to f32, as the
-        JAX package does on the host. Compressed, each chunk is encoded on
-        the device and lands as codes (and as bf16 rows with pq.rescore);
-        the f32 rows go to the host copy."""
+        JAX package does on the host: a bf16 store keeps the norms of the
+        f32 rows, as the JAX package's does. Compressed, each chunk is
+        encoded on the device and lands as codes (and as bf16 rows with
+        pq.rescore); the f32 rows go to the host copy."""
         count = rows.shape[0]
         off = 0
         while off < count:
@@ -972,13 +1084,14 @@ class GpuVectorIndex(VectorIndex):
                     if self._rescore_sq_norms is not None:
                         self._rescore_sq_norms[lo:hi] = (chunk.double() ** 2).sum(1).float()
             else:
-                self._store[lo:hi] = chunk
+                self._store[lo:hi] = chunk.to(self.dtype)
                 if self.metric == vi.DISTANCE_L2:
                     self._sq_norms[lo:hi] = (chunk.double() ** 2).sum(1).float()
             off += take
         if self.compressed:
             self._host_vecs[start: start + count] = rows
         self._store_gen += 1
+        self._stamp_memory()
 
     def _stage_add(self, doc_id: int, vector: np.ndarray, log: bool = True) -> None:
         vector = np.asarray(vector, dtype=np.float32)
@@ -991,6 +1104,7 @@ class GpuVectorIndex(VectorIndex):
         elif vector.shape[0] != self.dim:
             raise ValueError(f"dim mismatch: index has {self.dim}, got {vector.shape[0]}")
         self._staged_gen += 1
+        self._mark_staged()
         old = self._doc_to_slot.pop(doc_id, None)
         if old is not None:
             self._pending_tombs.append(old)
@@ -1038,6 +1152,7 @@ class GpuVectorIndex(VectorIndex):
         self._flush_pending()  # earlier staged singles keep their slots
         count = len(ids64)
         self._staged_gen += 1
+        self._mark_staged()
         self._ensure_capacity(self.n + count)
         self._cow_host_state()
         self._write_block(np.ascontiguousarray(vecs), self.n)
@@ -1054,12 +1169,14 @@ class GpuVectorIndex(VectorIndex):
                 del self._pending[doc_id]
                 self.live -= 1
                 self._staged_gen += 1
+                self._mark_staged()
                 if log and self._log is not None:
                     self._log.append_delete(doc_id)
             return
         self._pending_tombs.append(slot)
         self.live -= 1
         self._staged_gen += 1
+        self._mark_staged()
         if log and self._log is not None:
             self._log.append_delete(doc_id)
 
@@ -1084,9 +1201,11 @@ class GpuVectorIndex(VectorIndex):
 
     def _flush_pending(self) -> None:
         flushed = bool(self._pending or self._pending_tombs)
+        led = memory.get_ledger()
         if flushed:
             self._cow_host_state()
         if self._pending:
+            t0 = time.perf_counter()
             rows = np.stack(list(self._pending.values()))
             docs = np.array(list(self._pending.keys()), dtype=np.int64)
             count = rows.shape[0]
@@ -1095,7 +1214,22 @@ class GpuVectorIndex(VectorIndex):
             self._assign_slots(docs, self.n)
             self.n += count
             self._pending.clear()
-        self._apply_pending_tombs()
+            self._obs_index("add", "flush", t0, ops=count)
+            if led is not None:
+                led.note_write("add", "flush", (time.perf_counter() - t0) * 1000.0,
+                               rows=count, bytes_moved=count * (self.dim or 0) * 4)
+        if self._pending_tombs:
+            t0 = time.perf_counter()
+            count = len(self._pending_tombs)
+            self._apply_pending_tombs()
+            self._obs_index("delete", "apply_tombstones", t0, ops=count)
+            if led is not None:
+                led.note_write("delete", "apply_tombstones",
+                               (time.perf_counter() - t0) * 1000.0, rows=count)
+        if flushed:
+            # gauges refresh only when state changed: _flush_pending runs at
+            # the top of every search and must stay free on the hot path
+            self._update_index_gauges()
         self._maybe_declared_compress()
         if flushed or self._published_gen != self._staged_gen:
             # publication is the LAST step: readers grabbing the new
@@ -1139,24 +1273,123 @@ class GpuVectorIndex(VectorIndex):
         self._snap_gen += 1
         self._snap = IndexSnapshot(self._snap_gen, self)
         self._published_gen = self._staged_gen
+        m = self.metrics
+        if m is not None:
+            cls, shard = self._metric_labels()
+            m.index_snapshot_gen.labels(cls, shard).set(self._snap_gen)
+        self._stamp_memory()
+        led = memory.get_ledger()
+        if led is not None and self._staged_t0 is not None:
+            led.note_publish((time.perf_counter() - self._staged_t0) * 1000.0)
+        self._staged_t0 = None
 
     def _read_snapshot(self) -> IndexSnapshot:
         """The snapshot a search dispatches on: lock-free when nothing is
         staged; otherwise take the write lock once, flush and publish (the
-        read-your-writes check, paid by the first read after a write)."""
+        read-your-writes check, paid by the first read after a write) and
+        record the wait for `pop_read_lock_wait`."""
         snap = self._snap
         if snap is not None and self._published_gen == self._staged_gen:
+            self._read_local.lock_wait_ms = 0.0
             return snap
+        t0 = time.perf_counter()
         with self._lock:
+            wait_ms = (time.perf_counter() - t0) * 1000.0
             self._flush_pending()
             if self._snap is None or self._published_gen != self._staged_gen:
                 self._publish_snapshot()
-            return self._snap
+            snap = self._snap
+        self._read_local.lock_wait_ms = wait_ms
+        m = self.metrics
+        if m is not None:
+            cls, shard = self._metric_labels()
+            m.index_lock_wait.labels(cls, shard).observe(wait_ms)
+        return snap
+
+    def pop_read_lock_wait(self) -> float:
+        """ms the CALLING thread's last snapshot read waited on the write
+        lock (0.0 on the lock-free fast path); reading clears it. The shard
+        attaches it as a dispatch trace fact."""
+        w = getattr(self._read_local, "lock_wait_ms", 0.0)
+        self._read_local.lock_wait_ms = 0.0
+        return w
+
+    @property
+    def snapshot_gen(self) -> int:
+        """Published snapshot generation (0 = never published)."""
+        snap = self._snap
+        return snap.gen if snap is not None else 0
+
+    def _track_inflight(self, delta: int) -> None:
+        """Enqueued-but-not-finalized dispatch count (the read pipeline's
+        depth), published to the inflight gauge when metrics are on."""
+        with self._inflight_lock:
+            self._inflight += delta
+            val = self._inflight
+        g = self._inflight_gauge
+        if g is None:
+            if self.metrics is None:
+                return
+            cls, shard = self._metric_labels()
+            g = self.metrics.index_inflight_dispatches.labels(cls, shard)
+            self._inflight_gauge = g
+        g.set(val)
+
+    # -- memory ledger and gauges (monitoring/memory.py, metrics.py) ---------
+
+    def _memory_components(self) -> dict:
+        """Byte sizes of every device tensor this index holds, from shapes
+        and dtypes only (no sync); the names are the ledger's
+        memory.DEVICE_COMPONENTS taxonomy."""
+        comps: dict = {}
+        for name, arr in (("store", self._store),
+                          ("sq_norms", self._sq_norms),
+                          ("tombs", self._tombs),
+                          ("slot_to_doc", self._s2d_dev),
+                          ("pq_codes", self._codes),
+                          ("recon_norms", self._recon_norms),
+                          ("pq4_codes", self._codes4),
+                          ("pq4_norms", self._recon_norms4),
+                          ("rescore_store", self._rescore_dev),
+                          ("rescore_sq_norms", self._rescore_sq_norms)):
+            b = memory.array_bytes(arr)
+            if b:
+                comps[name] = b
+        return comps
+
+    def _stamp_memory(self) -> None:
+        """Stamp the ledger with this index's device components (one
+        comparison when no ledger is configured)."""
+        led = memory.get_ledger()
+        if led is not None:
+            led.stamp_device(self, self._memory_components())
+
+    def _mark_staged(self) -> None:
+        """Record the first staged-but-unpublished mutation's time so
+        publication can report the staged-generation lag."""
+        if self._staged_t0 is None and memory.get_ledger() is not None:
+            self._staged_t0 = time.perf_counter()
+
+    def _update_index_gauges(self) -> None:
+        m = self.metrics
+        if m is None:
+            return
+        cls, shard = self._metric_labels()
+        m.vector_index_tombstones.labels(cls, shard).set(self.n - self.live)
+        m.vector_index_size.labels(cls, shard).set(self.capacity)
+        m.vector_index_live.labels(cls, shard).set(self.live)
+        m.index_tombstone_fraction.labels(cls, shard).set(
+            (self.n - self.live) / self.n if self.n > 0 else 0.0)
+        if self.dim:
+            m.vector_dimensions.labels(cls, shard).set(self.live * self.dim)
+            if self.compressed and self._pq is not None:
+                m.vector_segments.labels(cls, shard).set(self.live * self._pq.segments)
 
     def load_state(self, state) -> None:
         """Install device state carried over from another index (see
         weaviate_tpu_torch.state.state_from_arrays) into this empty index
-        and publish it. A compressed state installs its quantizers, codes,
+        and publish it. An uncompressed store installs in this index's
+        store dtype (`storeDtype`). A compressed state installs its quantizers, codes,
         bf16 copy and host rows. A persistent index rewrites its vector log
         with the live rows (and saves the codebooks), so a restart restores
         the same answers."""
@@ -1170,7 +1403,7 @@ class GpuVectorIndex(VectorIndex):
             if state.pq is None:
                 if tuple(state.store.shape) != (cap, dim):
                     raise ValueError(f"store shape {tuple(state.store.shape)} != {(cap, dim)}")
-                self._store = state.store.to(dev, torch.float32).contiguous()
+                self._store = state.store.to(dev, self.dtype).contiguous()
                 self._sq_norms = state.sq_norms.to(dev, torch.float32).contiguous()
             else:
                 if state.host_vecs.shape != (cap, dim):
@@ -1207,8 +1440,8 @@ class GpuVectorIndex(VectorIndex):
                     rows = self._host_vecs[live]
                     self._save_codebooks()
                 else:
-                    rows = self._store[torch.from_numpy(live).to(dev)].cpu().numpy()
-                self._log.rewrite(zip(self._slot_to_doc[live].tolist(), rows))
+                    rows = self._store[torch.from_numpy(live).to(dev)].float().cpu().numpy()
+                self._log.rewrite(self._slot_to_doc[live], rows)
             self._staged_gen += 1
             self._publish_snapshot()
 
@@ -1233,7 +1466,7 @@ class GpuVectorIndex(VectorIndex):
                               metric=self.metric, encoder=pqc.encoder.type,
                               distribution=pqc.encoder.distribution, rotation=pqc.rotation,
                               device=self.device)
-        vecs = self._store[: self.n]
+        vecs = self._store[: self.n].float()
         pq.fit(vecs)
         self._enable_pq(pq, vecs, save=True)
 
@@ -1260,11 +1493,13 @@ class GpuVectorIndex(VectorIndex):
                              type(e).__name__, e)
         return self._fit_pq4(pq, vecs_n)
 
-    def _enable_pq(self, pq: ProductQuantizer, vecs_n: torch.Tensor, save: bool) -> None:
+    def _enable_pq(self, pq: ProductQuantizer, vecs_n: torch.Tensor, save: bool,
+                   pq4q: Optional[ProductQuantizer] = None) -> None:
         """Encode the n stored rows [n, D] (f32, on the device) with pq and
         switch the index to compressed mode; every new tensor is built
         before any attribute changes, so a failure leaves the index as it
-        was."""
+        was. `pq4q` re-encodes against a given 4-bit quantizer (compact)
+        instead of obtaining one."""
         n, cap, dev = self.n, self.capacity, self.device
         vecs_n = vecs_n.to(dev, torch.float32)
         codes = pq.encode(vecs_n)
@@ -1281,14 +1516,16 @@ class GpuVectorIndex(VectorIndex):
             if self.metric == vi.DISTANCE_L2:
                 rescore_sq = torch.zeros(cap, dtype=torch.float32, device=dev)
                 rescore_sq[:n] = (vecs_n.double() ** 2).sum(1).float()
-        pq4q = codes4 = norms4 = None
+        codes4 = norms4 = None
         if self.config.pq.bits == 4:
-            pq4q = self._obtain_pq4(pq, vecs_n)
+            pq4q = pq4q if pq4q is not None else self._obtain_pq4(pq, vecs_n)
             c4 = pq4q.encode(vecs_n)
             codes4 = torch.zeros((cap, pq4q.segments // 2), dtype=torch.uint8, device=dev)
             codes4[:n] = pack_codes4(c4)
             norms4 = torch.zeros(cap, dtype=torch.float32, device=dev)
             norms4[:n] = pq4q.recon_sq_norms(c4)
+        else:
+            pq4q = None
         self._codes, self._recon_norms, self._host_vecs = full, norms, hv
         self._rescore_dev, self._rescore_sq_norms = rescore, rescore_sq
         self._pq4, self._codes4, self._recon_norms4 = pq4q, codes4, norms4
@@ -1343,8 +1580,10 @@ class GpuVectorIndex(VectorIndex):
                 raise ValueError(f"dim mismatch: index has {self.dim}, got {vectors.shape[1]}")
             if self._log is not None:
                 self._log.append_add_batch(doc_arr, vectors)
+            t0 = time.perf_counter()
             count = vectors.shape[0]
             self._staged_gen += 1
+            self._mark_staged()
             self._ensure_capacity(self.n + count + _CHUNK)
             self._cow_host_state()
             self._write_block(vectors, self.n)
@@ -1356,6 +1595,12 @@ class GpuVectorIndex(VectorIndex):
             self._apply_pending_tombs()
             self._maybe_declared_compress()
             self._publish_snapshot()
+            self._obs_index("add", "batch", t0, ops=count)
+            led = memory.get_ledger()
+            if led is not None:
+                led.note_write("add", "batch", (time.perf_counter() - t0) * 1000.0,
+                               rows=count, bytes_moved=count * self.dim * 4)
+            self._update_index_gauges()
 
     def delete(self, *doc_ids: int) -> None:
         with self._lock:
@@ -1423,21 +1668,64 @@ class GpuVectorIndex(VectorIndex):
         self._blk_cache[name] = (src, gen, blk)
         return blk
 
-    def _prep_queries(self, vectors: np.ndarray) -> tuple[np.ndarray, int]:
-        """Query prep: f32 cast, cosine normalization and bucket padding
-        (the JAX package's _prep_queries_staged, without its buffer pool).
-        -> (padded [bb, D] f32, actual rows)."""
+    def _prep_queries_staged(self, vectors: np.ndarray):
+        """Query prep (f32 cast, cosine normalization, bucket padding) into
+        a reusable staging buffer from the per-(padded batch, dim) pool,
+        then the upload. On the card the buffer is pinned host memory and
+        the upload is non-blocking on the current stream; an event
+        recorded after it rides back to the pool with the buffer. On the
+        CPU the buffer is a numpy array the query tensor aliases.
+        -> (device query [bb, D] f32, actual rows, the staging entry). The
+        entry must go back through _release_stage only AFTER the
+        dispatch's blocking fetch (the finalize wrapper does): by then the
+        copy has read the buffer (on the CPU: the scan has), so the next
+        checkout may overwrite it."""
         q = np.asarray(vectors, dtype=np.float32)
         if q.ndim == 1:
             q = q[None, :]
         b = q.shape[0]
-        buf = np.zeros((_bucket_b(b), q.shape[1]), np.float32)
-        buf[:b] = q
+        bb = _bucket_b(b)
+        key = (bb, q.shape[1])
+        with self._stage_lock:
+            lst = self._stage_free.get(key)
+            entry = lst.pop() if lst else None
+        pinned = self.device.type == "cuda"
+        if entry is None:
+            entry = (_PinnedStage(torch.empty(key, dtype=torch.float32, pin_memory=True))
+                     if pinned else np.empty(key, np.float32))
+        elif pinned and entry.uploaded is not None:
+            entry.uploaded.synchronize()  # its last upload has read it (done already)
+        buf = entry.buf.numpy() if pinned else entry
+        np.copyto(buf[:b], q)
         if self.metric == vi.DISTANCE_COSINE:
             norms = np.linalg.norm(buf[:b], axis=1, keepdims=True)
             norms[norms == 0] = 1.0
             buf[:b] /= norms
-        return buf, b
+        if bb != b:
+            buf[b:] = 0.0
+        if not pinned:
+            return torch.from_numpy(buf), b, entry
+        q_dev = entry.buf.to(self.device, non_blocking=True)
+        entry.uploaded = torch.cuda.Event()
+        entry.uploaded.record(torch.cuda.current_stream(self.device))
+        return q_dev, b, entry
+
+    def _release_stage(self, entry) -> None:
+        """Park a staging entry for the next dispatch of its shape."""
+        if entry is None:
+            return
+        key = (entry.shape[0], entry.shape[1])
+        with self._stage_lock:
+            # dim is None once drop() ran: an in-flight dispatch finalizing
+            # after drop must NOT re-park its buffer into the cleared pool
+            # (checked under the lock: drop() sets dim before its locked
+            # clear, so a racing finalize either sees dim None here or
+            # appends before the clear wipes it)
+            if self.dim is None:
+                return
+            lst = self._stage_free.setdefault(key, [])
+            if len(lst) < self._STAGE_POOL_CAP:
+                lst.append(entry)
 
     def _allow_words(self, snap: IndexSnapshot, allow_list: AllowList) -> torch.Tensor:
         """Packed device filter words (int32 bits) for a snapshot's slot
@@ -1505,33 +1793,150 @@ class GpuVectorIndex(VectorIndex):
         """Two-phase search on `snap`: enqueue the device work now (query
         upload and kernels; nothing waits on the device) and return
         finalize(), whose one device->host transfer runs outside any
-        lock."""
+        lock. Every tier dispatches through here, so sync and async
+        searches run the same kernels on the same arguments."""
         if snap.n == 0 or snap.live == 0:
             b = 1 if np.asarray(vectors).ndim == 1 else len(vectors)
             empty = (np.zeros((b, 0), dtype=np.uint64), np.zeros((b, 0), dtype=np.float32))
             return lambda: empty
         if _ivf_requested(snap.n):
             raise NotImplementedError(_NO_IVF)
-        q_host, b = self._prep_queries(vectors)
-        if q_host.shape[1] != snap.dim:
-            raise ValueError(f"dim mismatch: index has {snap.dim}, got {q_host.shape[1]}")
-        q = torch.from_numpy(q_host).to(self.device)
+        if np.shape(vectors)[-1] != snap.dim:
+            raise ValueError(f"dim mismatch: index has {snap.dim}, got {np.shape(vectors)[-1]}")
+        faults.fire("index.gpu.dispatch")
+        # perf-attribution shape (monitoring/costmodel.py): built ONLY
+        # while the tracer is up, stamped as the dispatch executes and
+        # popped by the shard on the dispatching thread
+        shape = None
+        t_enq0 = time.perf_counter() if tracing.get_tracer() is not None else 0.0
+        q, b, stage = self._prep_queries_staged(vectors)
         k_eff = min(k, snap.live)
         # the fused dispatch translates on the card from the snapshot's
         # doc-id column; the staged one (s2d None) on the host
         s2d = snap.slot_to_doc_dev if fused_dispatch_enabled() else None
+        tier = self.dispatch_tier(snap, allow_list)
+        if t_enq0:
+            shape = self._dispatch_shape(snap, tier, allow_list, b, q.shape[0], k_eff)
+            shape.backend = costmodel.detect_backend(self.device)
+        if tier == costmodel.TIER_GATHER:
+            fin = self._dispatch_small_allow(snap, q, b, k_eff, allow_list, s2d, shape)
+        elif snap.compressed:
+            fin = self._dispatch_full_pq(snap, q, b, k_eff, allow_list, s2d, shape)
+        else:
+            allow_words = (self._allow_words(snap, allow_list)
+                           if allow_list is not None else None)
+            fin = self._dispatch_scan(snap, q, b, k_eff, allow_words, s2d, shape=shape)
+        if shape is not None:
+            now = time.perf_counter()
+            shape.t_start = t_enq0
+            shape.enqueue_ms = (now - t_enq0) * 1000.0
+            if s2d is not None:
+                # the fused-dispatch ledger invariant: one blocking fetch,
+                # no host translation
+                shape.fused = True
+                shape.translate_ms = 0.0
+            self._read_local.dispatch_shape = shape
+        # shadow-audit snapshot pin (monitoring/quality.py): the snapshot
+        # THIS dispatch read, so a sampled audit re-executes against the
+        # same index state; gated so the disabled path stores nothing
+        if quality.get_auditor() is not None:
+            self._read_local.audit_snap = snap
+        self._track_inflight(1)
+        done = [False]
+
+        def finalize():
+            fetched = False
+            try:
+                faults.fire("index.gpu.finalize")
+                if shape is not None and shape.fetches:
+                    shape.fetches = 0  # a retried finalize re-runs the fetch
+                t0 = time.perf_counter()
+                out = fin()
+                fetched = True
+                if shape is not None:
+                    t1 = time.perf_counter()
+                    shape.finalize_ms = (t1 - t0) * 1000.0
+                    shape.t_end = t1
+                return out
+            finally:
+                if not done[0]:  # idempotent: finalize may be retried
+                    done[0] = True
+                    self._track_inflight(-1)
+                    if fetched:
+                        # back to the pool ONLY after a completed fetch: a
+                        # buffer recycled under a still-enqueued upload
+                        # could be overwritten and corrupt a retry
+                        self._release_stage(stage)
+
+        return finalize
+
+    def dispatch_tier(self, snap: IndexSnapshot, allow_list=None) -> str:
+        """The costmodel TIER_* a dispatch on `snap` with `allow_list`
+        takes: the branching of _dispatch_search, also read by the quality
+        auditor."""
         if allow_list is not None and len(allow_list) < self.config.flat_search_cutoff:
-            return self._dispatch_small_allow(snap, q, b, k_eff, allow_list, s2d)
+            return costmodel.TIER_GATHER
         if snap.compressed:
-            return self._dispatch_full_pq(snap, q, b, k_eff, allow_list, s2d)
-        allow_words = (self._allow_words(snap, allow_list)
-                       if allow_list is not None else None)
-        return self._dispatch_scan(snap, q, b, k_eff, allow_words, s2d)
+            if snap.codes4 is not None and self.metric in vi.MATMUL_DISTANCES:
+                return costmodel.TIER_PQ_ADC4
+            if self.config.pq.rescore and snap.rescore_dev is not None:
+                return costmodel.TIER_PQ_RESCORE
+            return costmodel.TIER_PQ_CODES
+        return costmodel.TIER_EXACT
+
+    def _dispatch_shape(self, snap: IndexSnapshot, tier: str, allow_list, b: int,
+                        bb: int, k: int):
+        """The costmodel.DispatchShape of one dispatch (the JAX package's
+        per-tier attribution: rows scanned and the bytes each row costs)."""
+        if tier == costmodel.TIER_GATHER:
+            return costmodel.DispatchShape(
+                tier, n=min(len(allow_list), snap.live), dim=snap.dim, batch=b,
+                batch_padded=bb, bytes_per_row=snap.dim * 4, k=k)
+        if tier == costmodel.TIER_PQ_ADC4:
+            rescore = self.config.pq.rescore and snap.rescore_dev is not None
+            rg4, rc = self._funnel_budgets(k, snap.capacity)
+            return costmodel.DispatchShape(
+                tier, n=snap.n, dim=snap.dim, batch=b, batch_padded=bb,
+                bytes_per_row=snap.pq4.segments // 2, k=k,
+                extra={"funnel_c": rg4 * 16, "funnel_rescore": rc,
+                       "funnel_stage2_bytes_per_row": snap.pq.segments,
+                       "funnel_stage3_bytes_per_row": 2 * snap.dim if rescore else 0})
+        if tier == costmodel.TIER_PQ_RESCORE:
+            return costmodel.DispatchShape(tier, n=snap.n, dim=snap.dim, batch=b,
+                                           batch_padded=bb, bytes_per_row=2 * snap.dim, k=k)
+        if tier == costmodel.TIER_PQ_CODES:
+            return costmodel.DispatchShape(tier, n=snap.n, dim=snap.dim, batch=b,
+                                           batch_padded=bb, bytes_per_row=snap.pq.segments,
+                                           k=k)
+        return costmodel.DispatchShape(
+            tier, n=snap.n, dim=snap.dim, batch=b, batch_padded=bb,
+            bytes_per_row=snap.dim * snap.store.element_size(), k=k)
+
+    def pop_dispatch_shape(self):
+        """The costmodel.DispatchShape of the CALLING thread's last
+        dispatch (None while the tracer is down); reading clears it. The
+        shape object is shared with the finalize closure, so a pop at
+        enqueue time still sees the timings finalize stamps."""
+        s = getattr(self._read_local, "dispatch_shape", None)
+        if s is not None:
+            self._read_local.dispatch_shape = None
+        return s
+
+    def pop_audit_snapshot(self) -> Optional[IndexSnapshot]:
+        """The IndexSnapshot the CALLING thread's last dispatch read (None
+        unless an auditor was configured at dispatch time); reading clears
+        it, so the shadow re-execution is generation-pinned."""
+        s = getattr(self._read_local, "audit_snap", None)
+        if s is not None:
+            self._read_local.audit_snap = None
+        return s
 
     def _dispatch_scan(self, snap: IndexSnapshot, q: torch.Tensor, b: int,
-                       k_eff: int, allow_words, s2d, store=None, sq_norms=None):
-        """Full-store scan over `store`: the f32 store uncompressed, the
-        bf16 rescore copy under PQ with rescore. The group-min fast scan
+                       k_eff: int, allow_words, s2d, store=None, sq_norms=None,
+                       shape=None):
+        """Full-store scan over `store`: the store uncompressed (f32, or
+        bf16 with `storeDtype: bfloat16`: K1 then runs its bf16 filler on
+        the store itself), the bf16 rescore copy under PQ with rescore. The group-min fast scan
         when `_use_gmin` allows it, the chunked exact scan otherwise; the
         slot->doc translation runs on the device in both when s2d is the
         snapshot's doc-id column, on the host when it is None."""
@@ -1559,7 +1964,7 @@ class GpuVectorIndex(VectorIndex):
                 -(-snap.n // _SCAN_CHUNK),
                 self._rescore_r(kk, snap.n))
             packed = _pack(top, idx, s2d)
-        return self._finalize(packed, snap, s2d, b)
+        return self._finalize(packed, snap, s2d, b, shape=shape)
 
     def _funnel_budgets(self, k: int, n: int) -> tuple[int, int]:
         """(rg4 stage-1 groups, rc stage-2 survivors) of a funnel whose scan
@@ -1590,8 +1995,18 @@ class GpuVectorIndex(VectorIndex):
                    self._gen_blocks("codes", snap.codes, snap.store_gen,
                                     pq_gmin.build_codes_blocks))
         if s2d is not None:
-            return pq4.search_pq4_funnel_fused(*args, s2d, *statics)
-        return pq4.search_pq4_funnel(*args, *statics)
+            packed = pq4.search_pq4_funnel_fused(*args, s2d, *statics)
+        else:
+            packed = pq4.search_pq4_funnel(*args, *statics)
+        # per-stage survivor accounting (health()["pq"]["funnel"]): live
+        # rows, so the funnel reads monotone on a sparse slab too
+        with self._pq4_lock:
+            st = self._pq4_stats
+            st["dispatches"] += 1
+            st["stage1_rows"] += int(snap.n)
+            st["stage2_survivors"] += min(rg4 * gmin_scan.G, int(snap.n))
+            st["stage3_survivors"] += min(rc, int(snap.n))
+        return packed
 
     def _pq_gmin_or_none(self, snap: IndexSnapshot, q: torch.Tensor, k: int,
                          allow_words, use_allow: bool, s2d):
@@ -1616,7 +2031,7 @@ class GpuVectorIndex(VectorIndex):
         return pq_gmin.search_pq_gmin(*args, *statics)
 
     def _dispatch_full_pq(self, snap: IndexSnapshot, q: torch.Tensor, b: int, k: int,
-                          allow_list: Optional[AllowList], s2d):
+                          allow_list: Optional[AllowList], s2d, shape=None):
         """Compressed full-store search, in the reference's order: the
         4-bit funnel; the rescored tier (the fast scan reads the bf16 copy
         directly: less traffic and more accurate than scanning the codes
@@ -1628,13 +2043,19 @@ class GpuVectorIndex(VectorIndex):
         allow_words = self._allow_words(snap, allow_list) if use_allow else None
         packed = self._pq4_funnel_or_none(snap, q, k, allow_words, use_allow, s2d)
         if packed is not None:
-            return self._finalize(packed, snap, s2d, b, k)
-        if pqc.rescore and snap.rescore_dev is not None:
+            return self._finalize(packed, snap, s2d, b, k, shape)
+        rescore = pqc.rescore and snap.rescore_dev is not None
+        if shape is not None and shape.tier == costmodel.TIER_PQ_ADC4:
+            # the funnel refused this k: label what serves instead
+            shape.tier = costmodel.TIER_PQ_RESCORE if rescore else costmodel.TIER_PQ_CODES
+            shape.bytes_per_row = 2 * snap.dim if rescore else snap.pq.segments
+            shape.extra = None
+        if rescore:
             return self._dispatch_scan(snap, q, b, k, allow_words, s2d, store=snap.rescore_dev,
-                                       sq_norms=snap.rescore_sq_norms)
+                                       sq_norms=snap.rescore_sq_norms, shape=shape)
         packed = self._pq_gmin_or_none(snap, q, k, allow_words, use_allow, s2d)
         if packed is not None:
-            return self._finalize(packed, snap, s2d, b, k)
+            return self._finalize(packed, snap, s2d, b, k, shape)
         if self.metric in vi.MATMUL_DISTANCES:
             # per-chunk candidate depth: the pool of every chunk's winners
             # stays >= 512 (pq.rescoreLimit) whatever the chunk count
@@ -1651,19 +2072,20 @@ class GpuVectorIndex(VectorIndex):
             top, idx = _search_pq(snap.codes, snap.tombs, snap.n, lut, allow_words,
                                   min(k, snap.n, _PQ_SCAN_CHUNK), use_allow,
                                   -(-snap.n // _PQ_SCAN_CHUNK))
-        return self._finalize(_pack(top, idx, s2d), snap, s2d, b, k)
+        return self._finalize(_pack(top, idx, s2d), snap, s2d, b, k, shape)
 
     @staticmethod
     def _finalize(packed: torch.Tensor, snap: IndexSnapshot, s2d, b: int,
-                  k: Optional[int] = None):
-        """finalize() of a dispatch: the ONE blocking device->host transfer.
-        Fused (s2d given), it already carries final doc ids and the host
-        half is dtype views. Staged (s2d None), it carries slot indices,
-        translated through the dispatching snapshot's own slot->doc mirror
-        (a later write cannot change an in-flight answer)."""
+                  k: Optional[int] = None, shape=None):
+        """finalize() of a dispatch: the ONE blocking device->host transfer
+        (`_fetch_packed`). Fused (s2d given), it already carries final doc
+        ids and the host half is dtype views. Staged (s2d None), it carries
+        slot indices, translated through the dispatching snapshot's own
+        slot->doc mirror (a later write cannot change an in-flight
+        answer)."""
         if s2d is not None:
             def finalize():
-                ids, dists = unpack_fused(packed.cpu().numpy())
+                ids, dists = unpack_fused(_fetch_packed(packed, shape))
                 if k is not None:
                     ids, dists = ids[:, :k], dists[:, :k]
                 return ids[:b], dists[:b]
@@ -1672,24 +2094,32 @@ class GpuVectorIndex(VectorIndex):
         slot_to_doc = snap.slot_to_doc
 
         def finalize_staged():
-            top, idx = unpack_topk(packed.cpu().numpy())
+            top, idx = unpack_topk(_fetch_packed(packed, shape))
+            t0 = time.perf_counter()
             if k is not None:
                 top, idx = top[:, :k], idx[:, :k]
             top, idx = top[:b], idx[:b]
             ids = np.where(idx >= 0, slot_to_doc[np.clip(idx, 0, None)], -1)
+            if shape is not None:
+                shape.translate_ms = (time.perf_counter() - t0) * 1000.0
             return ids.astype(np.uint64), top.astype(np.float32)
 
         return finalize_staged
 
     def _dispatch_small_allow(self, snap: IndexSnapshot, q: torch.Tensor,
-                              b: int, k: int, allow_list: AllowList, s2d):
+                              b: int, k: int, allow_list: AllowList, s2d, shape=None):
         """Gather tier (flatSearch over the allowList, flat_search.go:19).
         Compressed, the allowed rows are uploaded from the host copy."""
         empty = (np.zeros((b, 0), np.uint64), np.zeros((b, 0), np.float32))
         slots = self._allow_slots(snap, allow_list)
         # nothing can match in THIS snapshot: no device work at all
         if slots.size == 0 or not np.any(~snap.host_tombs[slots]):
+            if shape is not None:
+                shape.n = 0  # no device work ran: zero the analytic cost
             return lambda: empty
+        if shape is not None:
+            # the gather scores only the rows present in this shard
+            shape.n = int(slots.size)
         rows = torch.from_numpy(slots).to(self.device)
         if snap.compressed:
             sub = torch.from_numpy(snap.host_vecs[slots]).to(self.device)
@@ -1697,7 +2127,197 @@ class GpuVectorIndex(VectorIndex):
             sub = snap.store[rows]
         top, pos = _score_rows(sub, q, rows, snap.tombs, min(k, slots.size), self.metric)
         slot_idx = torch.where(pos >= 0, rows[torch.clamp(pos, min=0)], -1)
-        return self._finalize(_pack(top, slot_idx, s2d), snap, s2d, b)
+        return self._finalize(_pack(top, slot_idx, s2d), snap, s2d, b, shape=shape)
+
+    # -- host fallback plane (serving/robustness.py circuit breaker) ---------
+
+    def host_rows(self, snap: IndexSnapshot) -> tuple[np.ndarray, np.ndarray]:
+        """Host f32 ([n, D] rows, [n] row sq-norms) of `snap`'s occupied
+        region: one bulk device->host copy and one norms pass, no caching
+        (the breaker caches per generation in _host_fallback_rows, the
+        quality auditor keeps its own). Under PQ the f32 rows already live
+        on the host (host_vecs); a bf16 store's rows come back upcast."""
+        if snap.compressed and snap.host_vecs is not None:
+            rows = snap.host_vecs[: snap.n]  # a view: no extra memory
+        else:
+            rows = snap.store[: snap.n].float().cpu().numpy()
+        # einsum: the norms pass must not transiently duplicate the rows
+        sq = np.einsum("ij,ij->i", rows, rows, dtype=np.float32)
+        return rows, sq
+
+    def _host_fallback_rows(self, snap: IndexSnapshot) -> tuple[np.ndarray, np.ndarray]:
+        """host_rows built ONCE per snapshot generation and cached: the
+        breaker's fallback pays one bulk copy when it first opens, not per
+        degraded query. (A card too far gone even to copy its memory makes
+        the copy raise; the shard then surfaces the original error.)"""
+        cached = self._host_rows_cache
+        if cached is not None and cached[0] == snap.gen:
+            return cached[1], cached[2]
+        rows, sq = self.host_rows(snap)
+        self._host_rows_cache = (snap.gen, rows, sq)
+        return rows, sq
+
+    def release_host_fallback_cache(self) -> None:
+        """Drop the host fallback copy (a full f32 store at serving scale)
+        once the breaker has recovered and the card serves this index
+        again; it rebuilds on the next breaker-open episode."""
+        self._host_rows_cache = None
+
+    def search_by_vectors_host(self, vectors: np.ndarray, k: int,
+                               allow_list: Optional[AllowList] = None
+                               ) -> tuple[np.ndarray, np.ndarray]:
+        """Batched kNN entirely on the HOST (numpy brute force) over the
+        published snapshot: the read path the shard routes to while the
+        device circuit breaker is open. The contract of search_by_vectors
+        ([B, k] ids and dists, inf-padded absent slots); selection is
+        exact."""
+        snap = self._read_snapshot()
+        if snap.n == 0 or snap.live == 0:
+            b = 1 if np.asarray(vectors).ndim == 1 else len(vectors)
+            return np.zeros((b, 0), np.uint64), np.zeros((b, 0), np.float32)
+        rows, row_sq = self._host_fallback_rows(snap)
+        return self._host_search_snap(snap, vectors, k, allow_list, rows, row_sq)
+
+    def search_by_vectors_host_pinned(self, snap: IndexSnapshot, vectors: np.ndarray, k: int,
+                                      allow_list: Optional[AllowList] = None,
+                                      rows: Optional[np.ndarray] = None,
+                                      sq_norms: Optional[np.ndarray] = None,
+                                      deadline: Optional[float] = None
+                                      ) -> tuple[np.ndarray, np.ndarray]:
+        """The quality auditor's host-plane entry: exact brute-force kNN
+        over a CALLER-PINNED snapshot (no flush, no lock, no fallback
+        cache; callers pass their own `rows`). `deadline`
+        (time.monotonic seconds) bounds the scan: quality.AuditDeadlineExceeded
+        aborts an over-budget audit."""
+        if snap.n == 0 or snap.live == 0:
+            b = 1 if np.asarray(vectors).ndim == 1 else len(vectors)
+            return np.zeros((b, 0), np.uint64), np.zeros((b, 0), np.float32)
+        if rows is None:
+            rows, sq_norms = self.host_rows(snap)
+        return self._host_search_snap(snap, vectors, k, allow_list, rows, sq_norms, deadline)
+
+    def _host_search_snap(self, snap: IndexSnapshot, vectors: np.ndarray, k: int,
+                          allow_list: Optional[AllowList], rows: np.ndarray,
+                          row_sq: np.ndarray, deadline: Optional[float] = None
+                          ) -> tuple[np.ndarray, np.ndarray]:
+        """Shared exact host scan over a snapshot's rows, in row chunks
+        (output-column splits, the same sums as one product) with a
+        deadline check per chunk."""
+        q = np.asarray(vectors, dtype=np.float32)
+        if q.ndim == 1:
+            q = q[None, :]
+        b = q.shape[0]
+        empty = (np.zeros((b, 0), np.uint64), np.zeros((b, 0), np.float32))
+        if snap.n == 0 or snap.live == 0:
+            return empty
+        if self.metric == vi.DISTANCE_COSINE:
+            norms = np.linalg.norm(q, axis=1, keepdims=True)
+            norms[norms == 0] = 1.0
+            q = q / norms
+        live = ~snap.host_tombs[: snap.n]
+        if allow_list is not None:
+            live = live & self._allowed(snap, allow_list)
+        n_live = int(live.sum())
+        if n_live == 0:
+            return empty
+        q_sq = (q ** 2).sum(1)[:, None] if self.metric == vi.DISTANCE_L2 else None
+        d = np.empty((b, snap.n), np.float32)
+        chunk = (4096 if self.metric in (vi.DISTANCE_MANHATTAN, vi.DISTANCE_HAMMING)
+                 else self._HOST_SCAN_CHUNK)
+        for s in range(0, snap.n, chunk):
+            if deadline is not None and time.monotonic() > deadline:
+                raise quality.AuditDeadlineExceeded(
+                    f"host scan over audit budget at row {s}/{snap.n}")
+            blk = rows[s: s + chunk]
+            e = s + blk.shape[0]
+            if self.metric == vi.DISTANCE_L2:
+                d[:, s:e] = np.maximum(q_sq - 2.0 * (q @ blk.T) + row_sq[s:e][None, :], 0.0)
+            elif self.metric == vi.DISTANCE_DOT:
+                d[:, s:e] = -(q @ blk.T)
+            elif self.metric == vi.DISTANCE_COSINE:
+                d[:, s:e] = 1.0 - q @ blk.T  # rows are insert-normalized
+            elif self.metric == vi.DISTANCE_MANHATTAN:
+                d[:, s:e] = np.abs(q[:, None, :] - blk[None, :, :]).sum(-1)
+            else:  # hamming
+                d[:, s:e] = (q[:, None, :] != blk[None, :, :]).sum(-1)
+        d[:, ~live] = np.inf
+        kk = min(max(int(k), 1), n_live)
+        part = np.argpartition(d, kk - 1, axis=1)[:, :kk]
+        pd = np.take_along_axis(d, part, axis=1)
+        order = np.argsort(pd, axis=1, kind="stable")
+        idx = np.take_along_axis(part, order, axis=1)
+        top = np.take_along_axis(pd, order, axis=1)
+        ids = np.where(np.isinf(top), -1, snap.slot_to_doc[idx])
+        return ids.astype(np.uint64), top.astype(np.float32)
+
+    def health(self) -> dict:
+        """Per-index introspection for ``GET /debug/index``: live and
+        tombstone accounting, snapshot and staged generation lag, PQ state,
+        the host fallback cache. Lock-free racy reads (introspection, not
+        an invariant); nothing here touches the device."""
+        snap = self._snap
+        n, live = self.n, self.live
+        tombs = max(n - live, 0)
+        cache = self._host_rows_cache
+        out = {
+            "type": "hnsw_tpu",
+            "metric": self.metric,
+            "dim": self.dim,
+            "capacity": self.capacity,
+            "slots": n,
+            "live": live,
+            "tombstones": tombs,
+            "tombstone_fraction": round(tombs / n, 4) if n > 0 else 0.0,
+            "pending_adds": len(self._pending),
+            "pending_tombstones": len(self._pending_tombs),
+            "snapshot_gen": snap.gen if snap is not None else 0,
+            "staged_gen": self._staged_gen,
+            "published_gen": self._published_gen,
+            "staged_lag": max(self._staged_gen - self._published_gen, 0),
+            "compressed": self.compressed,
+            "pq": None,
+            # the IVF plane is not ported yet (ROADMAP queue 1 item 9)
+            "ivf": {"enabled": False, "trained": False},
+            "host_fallback_cache": {
+                "resident": cache is not None,
+                "gen": cache[0] if cache is not None else None,
+                "bytes": memory.host_rows_cache_bytes(self),
+            },
+            "memory": {
+                "device_components": self._memory_components(),
+                "host_components": memory.index_host_components(self),
+            },
+        }
+        pq = self._pq
+        if self.compressed and pq is not None:
+            out["pq"] = {
+                "segments": pq.segments,
+                "centroids": pq.centroids,
+                "rotation": bool(pq.rotation),  # the configured name, as the reference reads it
+                "rescore": bool(self.config.pq.rescore and self._rescore_dev is not None),
+                # the reference's host code type, named as it names it
+                "code_dtype": str(np.uint8 if pq.centroids <= 256 else np.uint16),
+                "bits": 4 if self._codes4 is not None else 8,
+                # the funnel's rotated 4-bit ladder (the reference's device rotation)
+                "opq": self._pq4 is not None and self._pq4.rotation_matrix is not None,
+            }
+            if self._codes4 is not None and self._pq4 is not None:
+                rg4, rc = self._funnel_budgets(10, max(self.capacity, 1))  # k 10: the readout
+                with self._pq4_lock:
+                    st = dict(self._pq4_stats)
+                d = max(st["dispatches"], 1)
+                out["pq"]["funnel"] = {
+                    "stage1_c": rg4 * 16,
+                    "stage2_rescore": rc,
+                    # no control plane in the port: the caps are the top buckets
+                    "c_cap": PQ4_FUNNEL_C_BUCKETS[-1],
+                    "rescore_cap": PQ4_FUNNEL_RESCORE_BUCKETS[-1],
+                    "dispatches": st["dispatches"],
+                    "mean_stage1_rows": round(st["stage1_rows"] / d, 1),
+                    "mean_stage2_survivors": round(st["stage2_survivors"] / d, 1),
+                    "mean_stage3_survivors": round(st["stage3_survivors"] / d, 1),
+                }
+        return out
 
     def search_by_vector(
         self, vector: np.ndarray, k: int, allow_list: Optional[AllowList] = None
@@ -1757,6 +2377,66 @@ class GpuVectorIndex(VectorIndex):
             if self._log is not None:
                 self._log.flush()
 
+    def compact(self) -> None:
+        """Condense: drop tombstoned slots and rewrite the log (condensor.go
+        analog). Under PQ the rebuild re-encodes against the existing
+        codebooks, 8-bit and 4-bit."""
+        with self._lock:
+            self._flush_pending()
+            if self.n == 0:
+                return
+            live_slots = np.array(sorted(self._doc_to_slot.values()), dtype=np.int64)
+            if live_slots.size == self.n:
+                return
+            t_compact0 = time.perf_counter()
+            docs = self._slot_to_doc[live_slots]
+            if self.compressed:
+                vecs = self._host_vecs[live_slots]
+            else:  # a bf16 store's rows come back upcast, as the reference's do
+                rows = self._store[torch.from_numpy(live_slots).to(self.device)]
+                vecs = rows.float().cpu().numpy()
+            if self._log is not None:
+                self._log.rewrite(docs, vecs)
+            # the slot->doc mapping is rebuilt wholesale: filter caches keyed
+            # on the old layout must never be served again
+            self._allow_token = object()
+            pq, pq4q, was_compressed = self._pq, self._pq4, self.compressed
+            self.compressed = False
+            self._pq = self._pq4 = None
+            self._codes = self._recon_norms = None
+            self._rescore_dev = self._rescore_sq_norms = None
+            self._codes4 = self._recon_norms4 = None
+            self._host_vecs = None
+            self._blk_cache.clear()
+            self.dim = None
+            self.capacity = 0
+            self.n = 0
+            self.live = 0
+            self._doc_to_slot.clear()
+            self._store = self._sq_norms = self._tombs = self._s2d_dev = None
+            self._slot_to_doc = np.zeros(0, dtype=np.int64)
+            self._host_tombs = np.zeros(0, dtype=bool)
+            # suppress the declarative compress trigger for the rebuild:
+            # config.pq.enabled is true for ANY compressed index, so a flush
+            # would otherwise re-FIT a codebook in the middle of the rebuild
+            # and change the codes the re-encode below must preserve
+            prev_restoring = self._restoring
+            self._restoring = True
+            try:
+                self._bulk_stage_add(docs, vecs)
+                self._flush_pending()
+            finally:
+                self._restoring = prev_restoring
+            if was_compressed and self.n > 0:
+                self._enable_pq(pq, self._store[: self.n].float(), save=False, pq4q=pq4q)
+            if self._published_gen != self._staged_gen:
+                self._publish_snapshot()
+            ms = (time.perf_counter() - t_compact0) * 1000.0
+            led = memory.get_ledger()
+            if led is not None:
+                led.note_write("compact", "compact", ms, rows=self.live)
+            incidents.emit("write_phase", scope="compact", rows=self.live, ms=round(ms, 1))
+
     def drop(self) -> None:
         with self._lock:
             if self._log is not None:
@@ -1774,6 +2454,11 @@ class GpuVectorIndex(VectorIndex):
             self.live = 0
             self._slot_to_doc = np.zeros(0, dtype=np.int64)
             self._host_tombs = np.zeros(0, dtype=bool)
+            with self._stage_lock:
+                # parked staging buffers die with the data (a re-created
+                # class may use another dim)
+                self._stage_free.clear()
+            self._host_rows_cache = None
             self._doc_to_slot.clear()
             self._pending.clear()
             self._pending_tombs.clear()

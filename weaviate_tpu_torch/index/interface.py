@@ -1,5 +1,5 @@
 """The VectorIndex seam (the port's own copy of
-`weaviate_tpu/index/interface.py`, without its metric plumbing).
+`weaviate_tpu/index/interface.py`).
 
 Reference: adapters/repos/db/vector_index.go:23-40. Everything above the
 index passes (vector, k, allowList) down and gets (ids, dists) back, with
@@ -35,6 +35,34 @@ class AllowList(abc.ABC):
 
 class VectorIndex(abc.ABC):
     """Per-shard vector index (vector_index.go:23-40)."""
+
+    # -- metric plumbing shared by the concrete indexes (hnsw metrics.go
+    # parity); relies on self.shard_path / self.shard_name / self.metrics,
+    # which every persistent index sets in __init__ --------------------------
+
+    def _metric_labels(self) -> tuple[str, str]:
+        """(class_name, shard_name). The owning Shard sets `class_name`
+        after construction so labels match the shard-level families exactly
+        (the on-disk dir is lowercased and would mislabel); the path-derived
+        value is only the standalone-index fallback."""
+        import os
+
+        path = getattr(self, "shard_path", "") or ""
+        cls = getattr(self, "class_name", "") or (
+            os.path.basename(os.path.dirname(path.rstrip("/"))) or "")
+        return cls, getattr(self, "shard_name", "") or os.path.basename(path)
+
+    def _obs_index(self, op: str, step: str, t0: float, ops: int = 0) -> None:
+        import time
+
+        m = getattr(self, "metrics", None)
+        if m is None:
+            return
+        cls, shard = self._metric_labels()
+        m.vector_index_durations.labels(op, step, cls, shard).observe(
+            (time.perf_counter() - t0) * 1000.0)
+        if ops:
+            m.vector_index_ops.labels(op, cls, shard).inc(ops)
 
     @abc.abstractmethod
     def add(self, doc_id: int, vector: np.ndarray) -> None: ...

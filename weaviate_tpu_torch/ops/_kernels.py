@@ -35,6 +35,58 @@ _libs: dict[str, ctypes.CDLL] = {}
 build_info: dict[str, tuple[float, str]] = {}
 
 
+# The cudaError_t codes (CUDA 12 `driver_types.h`) that mean the card
+# faulted at run time or is gone: an allocation that failed, a kernel that
+# faulted (an illegal address or instruction, a trap, a device-side
+# assert, a watchdog timeout) and left the context sticky, an uncorrectable
+# ECC or NVLink error, a lost device. Every other code a C entry point
+# returns is deterministic (an invalid value or configuration, a tensor map
+# that does not encode, a launch asking for more resources than a block
+# has): the same call fails the same way on a healthy card.
+DEVICE_FAULT_CODES = frozenset({
+    2,    # cudaErrorMemoryAllocation
+    3,    # cudaErrorInitializationError
+    46,   # cudaErrorDevicesUnavailable
+    100,  # cudaErrorNoDevice
+    214,  # cudaErrorECCUncorrectable
+    220,  # cudaErrorNvlinkUncorrectable
+    700,  # cudaErrorIllegalAddress
+    702,  # cudaErrorLaunchTimeout
+    709,  # cudaErrorContextIsDestroyed
+    710,  # cudaErrorAssert
+    714,  # cudaErrorHardwareStackError
+    715,  # cudaErrorIllegalInstruction
+    716,  # cudaErrorMisalignedAddress
+    717,  # cudaErrorInvalidAddressSpace
+    718,  # cudaErrorInvalidPc
+    719,  # cudaErrorLaunchFailure
+})
+
+
+class KernelLaunchError(RuntimeError):
+    """A hand-written kernel's C entry point returned one of
+    DEVICE_FAULT_CODES: the card faulted. It carries `device_error`, so
+    `serving.robustness.is_device_error` counts it as a device fault and
+    the shard's breaker trips on it."""
+
+    device_error = True
+
+
+class KernelCallError(RuntimeError):
+    """A hand-written kernel's C entry point refused the call with a
+    deterministic code (not in DEVICE_FAULT_CODES): a fault of the plan or
+    the arguments, which the breaker must not hide behind the host plane.
+    Neither is a failed build (RuntimeError from `build`) nor a bad shape
+    (ValueError from the wrappers)."""
+
+
+def launch_error(what: str, rc: int, text: str) -> RuntimeError:
+    """The error a wrapper raises when its C entry point returns rc:
+    KernelLaunchError for a card fault, KernelCallError otherwise."""
+    cls = KernelLaunchError if rc in DEVICE_FAULT_CODES else KernelCallError
+    return cls(f"{what}: {text} (cudaError_t {rc})")
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc")
     if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):

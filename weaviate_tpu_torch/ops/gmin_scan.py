@@ -198,8 +198,8 @@ def group_min_scores(q: torch.Tensor, store3: torch.Tensor, bias2: torch.Tensor,
                 out.data_ptr(), b, ncols, d, ag, float(alpha), plan.scg, int(qvec4), int(svec),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError("gmin_scan kernel launch failed: "
-                           + lib.gmin_scan_error_string(rc).decode())
+        raise _kernels.launch_error("gmin_scan kernel launch failed", rc,
+                                    lib.gmin_scan_error_string(rc).decode())
     launches += 1
     return out
 

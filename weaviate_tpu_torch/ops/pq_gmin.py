@@ -148,7 +148,8 @@ def launch_codes(fn_name: str, q, codes3, bias2, codebook, alpha, active_g, b, d
         float(alpha), plan.scg, int(d % 4 == 0 and q.data_ptr() % 16 == 0),
         int(codebook.data_ptr() % 16 == 0), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{fn_name} failed: " + lib.pq_gmin_error_string(rc).decode())
+        raise _kernels.launch_error(f"{fn_name} failed", rc,
+                                    lib.pq_gmin_error_string(rc).decode())
     return out
 
 

@@ -18,6 +18,7 @@ import torch
 
 from weaviate_tpu_torch.compress.pq import ProductQuantizer
 from weaviate_tpu_torch.device import resolve_device
+from weaviate_tpu_torch.entities.vectorindex import STORE_DTYPES
 
 
 @dataclass
@@ -28,7 +29,7 @@ class DeviceState:
     capacity: int
     dim: int
     # uncompressed
-    store: Optional[torch.Tensor] = None         # [capacity, dim] f32
+    store: Optional[torch.Tensor] = None         # [capacity, dim] f32 or bf16
     sq_norms: Optional[torch.Tensor] = None      # [capacity] f32 (zeros unless l2)
     # compressed
     pq: Optional[ProductQuantizer] = None
@@ -55,10 +56,23 @@ def _quantizer(codebook, rotation, dim: int, metric: str, dev, opq: bool) -> Pro
     return pq
 
 
-def state_from_arrays(arrays: dict, device=None) -> DeviceState:
+def _store_tensor(store, store_dtype: str, dev) -> torch.Tensor:
+    """The carried store as a device tensor of the store dtype: a bf16
+    store comes as its bf16 values (any float dtype, upcast exactly) or as
+    their bits viewed as uint16."""
+    a = np.asarray(store)
+    if store_dtype == "bfloat16" and a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(dev)
+    t = torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+    return t.to(torch.bfloat16) if store_dtype == "bfloat16" else t
+
+
+def state_from_arrays(arrays: dict, device=None, store_dtype: str = "float32") -> DeviceState:
     """arrays: "tombs" [capacity] bool, "slot_to_doc" [capacity] int64, the
     ints "n", "capacity", "dim", and either
-      - uncompressed: "store" [capacity, dim], "sq_norms" [capacity]; or
+      - uncompressed: "store" [capacity, dim] in `store_dtype` ("float32",
+        or "bfloat16": bf16 values in any float dtype, or their bits as
+        uint16), "sq_norms" [capacity] (the f32 rows' norms); or
       - compressed: "pq_codebook" [M, C, ds] (+ "pq_rotation" [dim, dim]),
         "metric", "codes" [capacity, M], "recon_norms" [capacity],
         "host_vecs" [capacity, dim], optionally "rescore" [capacity, dim]
@@ -80,10 +94,12 @@ def state_from_arrays(arrays: dict, device=None) -> DeviceState:
     state = DeviceState(tombs=dev_tensor(np.asarray(arrays["tombs"])[:cap], np.bool_),
                         slot_to_doc=slot_to_doc.copy(), n=n, capacity=cap, dim=dim)
     if "pq_codebook" not in arrays:
-        store = np.asarray(arrays["store"], dtype=np.float32)
+        if store_dtype not in STORE_DTYPES:
+            raise ValueError(f"store_dtype must be float32 or bfloat16, got {store_dtype!r}")
+        store = np.asarray(arrays["store"])
         if store.shape != (cap, dim):
             raise ValueError(f"store shape {store.shape} != {(cap, dim)}")
-        state.store = dev_tensor(store, np.float32)
+        state.store = _store_tensor(store, store_dtype, dev)
         state.sq_norms = dev_tensor(np.asarray(arrays["sq_norms"])[:cap], np.float32)
         return state
     metric, rot = str(arrays["metric"]), arrays.get("pq_rotation")

@@ -179,8 +179,8 @@ def layout_plan(d: int, groups: int) -> gmin_scan.ResidentPlan:
 def _launch(fn, *args) -> None:
     rc = fn(*args)
     if rc != 0:
-        raise RuntimeError("gmin_layouts kernel launch failed: "
-                           + _layouts_lib().gmin_layouts_error_string(rc).decode())
+        raise _kernels.launch_error("gmin_layouts kernel launch failed", rc,
+                                    _layouts_lib().gmin_layouts_error_string(rc).decode())
 
 
 def nt_scores(q: torch.Tensor, store3t: torch.Tensor, bias2: torch.Tensor,
