@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (weaviate_tpu_torch) on one NVIDIA card at
 the headline scale and at the PQ configuration's, run its stage profiler
-at full width, drive its Shard at 1M objects, and check them.
+at full width, drive its Shard and its App (REST, GraphQL, gRPC, the
+coalescer) at 1M objects, and check them.
 
     python3 chip_smoke.py [--seed 7]
 
@@ -69,6 +70,29 @@ D. the Shard (`weaviate_tpu_torch.db.shard.Shard`) at full width: one
    on the Shard index's own store at D's shapes (its own tile plan, B 256
    and B 16384).
 
+E. the App (`weaviate_tpu_torch.server.App` on the card, its default
+   config: the reference App's LSM settings) at D's size: D's class
+   created through REST `POST /v1/schema`, 1,048,576 objects with D's
+   generator (seed + 5) imported through `app.batch` (the use case under
+   `/v1/batch/objects`) in batches of 10,000 and one real REST `POST
+   /v1/batch/objects` of 1,000 JSON objects, flushed to segments; K1 held
+   against its plain version on the App's store at B 16 and 64 (the
+   coalescer's lanes), 256 and 16384. Its main path (K1's
+   count set to 0 just before, read just after): GraphQL `Get`
+   nearVector k=10 over REST, one query a request (p50, p99),
+   `/v1/graphql/batch` of 256 (p50), a `where` on `tag` (the gather tier,
+   recall >= 0.99); gRPC `BatchSearch` at 256 and at 16384 queries (the
+   raw lane, with the native marshaller and point-gets asserted, and
+   the servicer's count of the requests the raw lane answered); one
+   request of each lane under torch.profiler (the busy share). Then the
+   App is shut down and reopened on the same directory with the
+   coalescer on (the restart timed): 256 queries from 64 threads equal
+   the direct batch's answers, 64 client threads of single-query GraphQL
+   for 10 s (QPS, p50, p99, the mean lane fill), and a device trace
+   through `GET /debug/pprof/trace?seconds=1` during that load must name
+   K1's kernel. Whether the machine has grpc and protobuf is probed with
+   importlib.util.find_spec and printed; without them phase E fails.
+
     python3 chip_smoke.py --busy-share CHECKOUT
 
 runs only A's and B1's sync p50 and device-busy share, with the package
@@ -97,10 +121,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    profiler modes with their launch counts (each count set to 0 just
    before the modes run and read just after), K1's time on the same store
    and shape, then the layout kernels' timings and their ratio to it;
-6. A-bf16, then D (each names itself on stderr);
+6. A-bf16, then D, then E (each names itself on stderr);
 7. the card line, one JSON line of per-kernel numbers (K1's launches and
-   max abs error include D's, K1-bf16's the A-bf16 run's), the result
-   line.
+   max abs error include D's and E's, K1-bf16's the A-bf16 run's), the
+   result line.
 
 Each phase also names itself on stderr as it starts. A watchdog stops the
 run at WATCHDOG_S seconds: it prints every thread's Python stack to stderr
@@ -158,8 +182,14 @@ D_STORE_OPTS = {"memtable_max_bytes": 200 << 20, "flush_idle_seconds": 60.0}
 # expanded form's rounding is ~1e-4 absolute, so two neighbours closer
 # than that may swap places (or trade the 10th place) between the two
 HOST_RTOL, HOST_ATOL = 1e-5, 1e-3
+E_CLASS = "SiftDoc"       # workload E: the App at D's size (D_N objects, D's properties)
+E_REST_IMPORT = 1000      # objects through one REST POST /v1/batch/objects (the rest: app.batch)
+E_REST_REQS = 64          # single-query GraphQL requests (p50, p99)
+E_FILTER_REQS = 32        # single-query GraphQL requests with the tag filter (gather tier)
+E_REPS, E_RAW_REPS = 5, 3  # timed /v1/graphql/batch and BatchSearch 256; BatchSearch 16384
+E_THREADS, E_LOAD_S = 64, 10.0  # coalesced load: client threads, seconds
 BUSY_REPS = 3             # profiled batches per workload of --busy-share
-WATCHDOG_S = 1140  # seconds: a run past this has stalled (a whole run takes ~600 s)
+WATCHDOG_S = 1140  # seconds: a run past this has stalled (a whole run takes ~680 s)
 T_START = time.perf_counter()
 
 
@@ -1056,6 +1086,32 @@ def exact_tier(shard, q) -> tuple[np.ndarray, np.ndarray]:
     return np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts])
 
 
+def check_k1_on_shard(label, what, shard, q_raw, dev, seed, sizes) -> float:
+    """K1 against its plain version on a Shard index's own store, at its
+    own tile plan (the capacity's columns, the live slices), dead slots
+    and whole dead groups, l2 and dot, at the batch sizes `sizes`. -> max
+    abs error."""
+    from weaviate_tpu_torch.ops import gmin_scan
+    snap = shard.vector_index._read_snapshot()
+    G = gmin_scan.G
+    ncols, ag = snap.capacity // G, -(-snap.n // (snap.capacity // G))
+    store3 = snap.store.view(G, ncols, snap.dim)
+    dead = dead_mask(snap.capacity, ncols, snap.n, np.random.default_rng(seed), dev,
+                     snap.tombs)
+    biases = [(m, a, torch.where(dead, float("inf"), base).view(G, ncols))
+              for m, a, base in (("l2", -2.0, snap.sq_norms),
+                                 ("dot", -1.0, torch.zeros_like(snap.sq_norms)))]
+    k1 = lambda q, b2, a, g: gmin_scan.group_min_scores(q, store3, b2, a, active_g=g)  # noqa: E731
+    k1_plain = lambda q, b2, a, g: gmin_scan.group_min_scores_reference(q, store3, b2, a, g)  # noqa: E731
+    log(f"{label} K1 on {what}'s store: ncols {ncols}, ag {ag}"
+        f"{plan_note(gmin_scan.resident_plan(snap.dim, ag))}")
+    max_err = check_kernel(f"gmin_scan f32 ({what} store)", k1, k1_plain,
+                           torch.from_numpy(q_raw).to(dev), biases, ncols, ag, sizes=sizes)
+    del snap, store3, dead, biases
+    torch.cuda.empty_cache()
+    return max_err
+
+
 def shard_workload(dev, card, seed) -> dict:
     """The Shard over the port's index at 1M objects: import, the
     hydrated and raw read lanes, filters, deletes, the host plane, the
@@ -1108,24 +1164,7 @@ def shard_workload(dev, card, seed) -> dict:
         # K1 against its plain version on the Shard index's own store, at
         # the shapes D's main path gives it (its own tile plan: more
         # columns and fewer live slices than A's) and at D's batch sizes
-        snap = shard.vector_index._read_snapshot()
-        G = gmin_scan.G
-        ncols, ag = snap.capacity // G, -(-snap.n // (snap.capacity // G))
-        store3 = snap.store.view(G, ncols, DIM)
-        dead = dead_mask(snap.capacity, ncols, snap.n, np.random.default_rng(seed + 4), dev,
-                         snap.tombs)
-        biases = [(m, a, torch.where(dead, float("inf"), base).view(G, ncols))
-                  for m, a, base in (("l2", -2.0, snap.sq_norms),
-                                     ("dot", -1.0, torch.zeros_like(snap.sq_norms)))]
-        k1 = lambda q, b2, a, g: gmin_scan.group_min_scores(q, store3, b2, a, active_g=g)  # noqa: E731
-        k1_plain = lambda q, b2, a, g: gmin_scan.group_min_scores_reference(q, store3, b2, a, g)  # noqa: E731
-        log(f"D K1 on the Shard's store: ncols {ncols}, ag {ag}"
-            f"{plan_note(gmin_scan.resident_plan(DIM, ag))}")
-        max_err = check_kernel("gmin_scan f32 (Shard store)", k1, k1_plain,
-                               torch.from_numpy(q_raw).to(dev), biases, ncols, ag,
-                               sizes=(D_B, BATCH))
-        del snap, store3, dead, biases
-        torch.cuda.empty_cache()
+        max_err = check_k1_on_shard("D", "the Shard", shard, q_raw, dev, seed + 4, (D_B, BATCH))
 
         x_dev = torch.from_numpy(vecs).to(dev)
         gt_h = exact_topk(torch.from_numpy(q_hyd).to(dev), x_dev, K)
@@ -1320,6 +1359,353 @@ def shard_workload(dev, card, seed) -> dict:
     finally:
         if shard is not None:
             shard.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": max_err}
+
+
+# -- workload E: the App above the Shard ------------------------------------------------
+
+def http(port, method, path, body=None, timeout=300):
+    """One REST request to 127.0.0.1:port -> (status, parsed JSON or text)."""
+    import urllib.request
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method)
+    req.add_header("Content-Type", "application/json")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        raw = r.read()
+        if r.headers.get("Content-Type", "").startswith("application/json"):
+            return r.status, json.loads(raw) if raw else None
+        return r.status, raw.decode()
+
+
+def gql_near(q, where: str = "") -> str:
+    """A GraphQL Get nearVector k=K over E's class, ids and distances."""
+    return ("{ Get { %s(nearVector: {vector: %s}, limit: %d%s) { _additional { id distance } } } }"
+            % (E_CLASS, json.dumps([round(float(v), 7) for v in q]), K, where))
+
+
+def gql_rows(reply) -> tuple[list[int], list[float]]:
+    """A GraphQL Get reply -> (doc ids, distances); an error raises."""
+    if reply.get("errors"):
+        raise AssertionError(f"E GraphQL: {reply['errors']}")
+    rows = reply["data"]["Get"][E_CLASS]
+    return ([uuidlib.UUID(r["_additional"]["id"]).int - 1 for r in rows],
+            [float(r["_additional"]["distance"]) for r in rows])
+
+
+def ids_matrix(rows) -> np.ndarray:
+    out = np.full((len(rows), K), -1, dtype=np.int64)
+    for i, (ids, _) in enumerate(rows):
+        out[i, : len(ids)] = ids[:K]
+    return out
+
+
+def grpc_batch_ids(reply) -> np.ndarray:
+    out = np.full((len(reply.replies), K), -1, dtype=np.int64)
+    for i, one in enumerate(reply.replies):
+        if one.error_message:
+            raise AssertionError(f"E BatchSearch slot {i}: {one.error_message}")
+        for j, r in enumerate(one.results[:K]):
+            out[i, j] = uuidlib.UUID(r.id).int - 1
+    return out
+
+
+def app_workload(dev, card, seed) -> dict:
+    """The port's App (REST, GraphQL, gRPC, the coalescer) at workload
+    D's size. -> K1's launches on the main path and its max abs error on
+    the App's store."""
+    import importlib.util
+    import threading
+
+    from weaviate_tpu_torch.config import load_config
+    from weaviate_tpu_torch.ops import gmin_scan
+    from weaviate_tpu_torch.server import App, RestServer, reply_native
+    from weaviate_tpu_torch.storage import lsm_native
+
+    has_grpc = {m: importlib.util.find_spec(m) is not None for m in ("grpc", "google.protobuf")}
+    log(f"E probe: importlib.util.find_spec: {has_grpc}")
+    if not all(has_grpc.values()):
+        raise AssertionError(f"E: gRPC cannot be served on this machine: {has_grpc}")
+    rng = np.random.default_rng(seed + 5)
+    t0 = time.perf_counter()
+    vecs = make_data(D_N, DIM, rng)
+    bucket = rng.integers(0, D_BUCKETS, D_N)
+    q_all = queries(vecs, rng, 1)[0]
+    log(f"E data: {D_N} x {DIM} vectors (seed + 5), tag and bucket as D, {BATCH} queries in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def payload(i, as_list=False):
+        return {"class": E_CLASS, "id": str(uuidlib.UUID(int=i + 1)),
+                "properties": {"tag": f"tag{i % D_TAGS}", "bucket": int(bucket[i])},
+                "vector": vecs[i].tolist() if as_list else vecs[i]}
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_e_")
+    app = srv = gsrv = client = None
+    try:
+        app = App(data_path=tmp, device=dev)
+        srv = RestServer(app, host="127.0.0.1", port=0)
+        srv.start()
+        port = srv.port
+        st, _ = http(port, "POST", "/v1/schema", {
+            "class": E_CLASS, "vectorIndexType": "hnsw_tpu",
+            "vectorIndexConfig": {"distance": "l2-squared"},
+            "properties": [{"name": "tag", "dataType": ["text"]},
+                           {"name": "bucket", "dataType": ["int"]}]})
+        if st != 200:
+            raise AssertionError(f"E POST /v1/schema: {st}")
+        t0 = time.perf_counter()
+        n_use = D_N - E_REST_IMPORT
+        for s in range(0, n_use, D_IMPORT):
+            res = app.batch.add_objects([payload(i) for i in range(s, min(s + D_IMPORT, n_use))])
+            bad = [r.err for r in res if r.err is not None]
+            if bad:
+                raise AssertionError(f"E import: {bad[0]}")
+        batch_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        st, res = http(port, "POST", "/v1/batch/objects",
+                       {"objects": [payload(i, True) for i in range(n_use, D_N)]})
+        rest_s = time.perf_counter() - t1
+        if st != 200 or any("errors" in r["result"] for r in res):
+            raise AssertionError(f"E POST /v1/batch/objects: {st}")
+        idx = app.db.get_index(E_CLASS)
+        shard = idx.single_local_shard()
+        shard.flush()
+        shard.store.flush_memtables()
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        if shard.object_count() != D_N:
+            raise AssertionError(f"E import: {shard.object_count()} objects")
+        log(f"E import: {n_use} objects through app.batch (the use case under "
+            f"/v1/batch/objects) in batches of {D_IMPORT}: {batch_s:.1f} s; {E_REST_IMPORT} "
+            f"through REST POST /v1/batch/objects: {rest_s:.2f} s; then flush and memtables "
+            f"to segments: {import_s:.1f} s in all, {D_N / import_s:.0f} objects/s; capacity "
+            f"{shard.vector_index.capacity}")
+
+        # 16 and 64: the coalescer's lanes (max_request_rows 16, padded to
+        # the index's B buckets), a partial tile of K1's query rows
+        max_err = check_k1_on_shard("E", "the App", shard, q_all, dev, seed + 6,
+                                    (16, 64, D_B, BATCH))
+        x_dev = torch.from_numpy(vecs).to(dev)
+        q_rest, q_b = q_all[:E_REST_REQS], q_all[:D_B]
+        gt_b = exact_topk(torch.from_numpy(q_b).to(dev), x_dev, K)
+        gt_rows = np.arange(0, BATCH, BATCH // N_GT)
+        gt_raw = exact_topk(torch.from_numpy(q_all[gt_rows]).to(dev), x_dev, K)
+        # the coalescer's answers are held against these (outside the count)
+        direct = shard.object_vector_search(q_b, K)
+        want_ids, want_d = shard_doc_ids(direct), shard_dists(direct)
+
+        # the main path, through the App's entry points
+        phase("E main path")
+        gmin_scan.launches = 0
+        lat, rows = [], []
+        for q in q_rest:
+            t1 = time.perf_counter()
+            st, rep = http(port, "POST", "/v1/graphql", {"query": gql_near(q)})
+            lat.append(time.perf_counter() - t1)
+            rows.append(gql_rows(rep))
+        r_rest = recall_at_k(ids_matrix(rows), gt_b[:E_REST_REQS])
+        p50_rest, p99_rest = (float(np.percentile(lat, p)) for p in (50, 99))
+        log(f"E REST GraphQL Get nearVector, one query a request, {E_REST_REQS} requests: p50 "
+            f"{p50_rest * 1e3:.2f} ms, p99 {p99_rest * 1e3:.2f} ms; recall@10 {r_rest:.4f}")
+        body = [{"query": gql_near(q)} for q in q_b]
+        lat = []
+        for _ in range(E_REPS):
+            t1 = time.perf_counter()
+            st, rep = http(port, "POST", "/v1/graphql/batch", body)
+            lat.append(time.perf_counter() - t1)
+        ids_batch = ids_matrix([gql_rows(r) for r in rep])
+        r_batch = recall_at_k(ids_batch, gt_b)
+        p50_batch = float(np.median(lat))
+        log(f"E REST /v1/graphql/batch of {D_B} queries (without the coalescer its slots run "
+            f"one after another): {['%.1f ms' % (t * 1e3) for t in lat]}, "
+            f"p50 {p50_batch * 1e3:.2f} ms; recall@10 {r_batch:.4f}")
+        allowed = np.arange(5, D_N, D_TAGS)
+        where = ', where: {operator: Equal, path: ["tag"], valueText: "tag5"}'
+        from weaviate_tpu_torch.entities.filters import LocalFilter
+        tier = shard.vector_index.dispatch_tier(
+            shard.vector_index._read_snapshot(), shard.build_allow_list(LocalFilter.from_dict(
+                {"operator": "Equal", "path": ["tag"], "valueText": "tag5"})))
+        rows_f = [gql_rows(http(port, "POST", "/v1/graphql", {"query": gql_near(q, where)})[1])
+                  for q in q_all[:E_FILTER_REQS]]
+        ids_f = ids_matrix(rows_f)
+        gt_f = allowed[exact_topk(torch.from_numpy(q_all[:E_FILTER_REQS]).to(dev),
+                                  x_dev[torch.from_numpy(allowed).to(dev)], K)]
+        r_filter = recall_at_k(ids_f, gt_f)
+        log(f"E REST GraphQL where tag = tag5 ({len(allowed)} allowed, tier {tier}), "
+            f"{E_FILTER_REQS} requests: recall@10 {r_filter:.4f} (bar 0.99)")
+        if (min(r_rest, r_batch) < RECALL_BAR or r_filter < 0.99 or tier != "gather"
+                or not np.isin(ids_f[ids_f >= 0], allowed).all()):
+            raise AssertionError(f"E REST: recall {r_rest:.4f} / {r_batch:.4f} / filter "
+                                 f"{r_filter:.4f}, tier {tier}, or an id outside the allowList")
+
+        if not (reply_native.available() and lsm_native.available()):
+            raise AssertionError("E: the native reply marshaller or the LSM point-get plane "
+                                 "did not build")
+        from weaviate_tpu_torch.grpcapi import weaviate_pb2 as pb
+        from weaviate_tpu_torch.server.grpc_server import GrpcServer, SearchClient
+        gsrv = GrpcServer(app, host="127.0.0.1", port=0)
+        gsrv.start()
+        client = SearchClient(f"127.0.0.1:{gsrv.port}")
+
+        def breq(qs):
+            return pb.BatchSearchRequest(requests=[
+                pb.SearchRequest(class_name=E_CLASS, limit=K,
+                                 near_vector=pb.NearVectorParams(vector=q.tolist()))
+                for q in qs])
+
+        grpc_out = {}
+        for width, reps in ((D_B, E_REPS), (BATCH, E_RAW_REPS)):
+            req = breq(q_all[:width])
+            hits0 = gsrv.servicer.raw_lane_batches
+            lat = []
+            for _ in range(reps):
+                t1 = time.perf_counter()
+                reply = client.batch_search(req, timeout=600)
+                lat.append(time.perf_counter() - t1)
+            raw = gsrv.servicer.raw_lane_batches - hits0
+            ids_g = grpc_batch_ids(reply)
+            r_g = recall_at_k(ids_g[:D_B], gt_b) if width == D_B else \
+                recall_at_k(ids_g[gt_rows], gt_raw)
+            grpc_out[width] = (float(np.median(lat)), r_g)
+            log(f"E gRPC BatchSearch {width} queries (raw lane served {raw} of {reps}, native "
+                f"marshaller {reply_native.available()}): {['%.1f ms' % (t * 1e3) for t in lat]}, "
+                f"p50 {grpc_out[width][0] * 1e3:.2f} ms; recall@10 {r_g:.4f}")
+            if r_g < RECALL_BAR or (width == BATCH and raw != reps):
+                raise AssertionError(f"E gRPC {width}: recall {r_g:.4f}, raw lane served {raw} "
+                                     f"of {reps}")
+        raw_search = lambda: client.batch_search(breq(q_all), timeout=600)  # noqa: E731
+        # where one request's device time goes (chip_smoke's own profiler
+        # session; the App's device trace below runs after it, never beside)
+        busy = {}
+        for label, fn in ((f"graphql/batch {D_B}", lambda: http(port, "POST",
+                                                                 "/v1/graphql/batch", body)),
+                          (f"raw-lane BatchSearch {BATCH}", raw_search)):
+            wall_ms, kernels = profile_batch(fn)
+            dev_ms = sum(ms for _, ms, _ in kernels)
+            busy[label] = (wall_ms, dev_ms)
+            log(f"[{card}] E {label} profile: wall {wall_ms:.1f} ms, device kernels "
+                f"{dev_ms:.2f} ms ({dev_ms / wall_ms:.1%} busy)")
+            for key, ms, count in kernels[:6]:
+                log(f"  {ms:8.3f} ms  x{count:<4d} {key[:100]}")
+        client.close()
+        gsrv.stop()
+        client = gsrv = None
+        srv.stop()
+        srv = None
+        app.shutdown()
+        app = shard = None
+
+        # the coalescer: the App reopened on the same directory
+        phase("E coalescer")
+        cfg = load_config({**os.environ, "QUERY_COALESCER_ENABLED": "true"})
+        t0 = time.perf_counter()
+        app = App(config=cfg, data_path=tmp, device=dev)
+        srv = RestServer(app, host="127.0.0.1", port=0)
+        srv.start()
+        port = srv.port
+        first = gql_rows(http(port, "POST", "/v1/graphql", {"query": gql_near(q_b[0])})[1])
+        restart_s = time.perf_counter() - t0
+        if first[0] != want_ids[0].tolist():
+            raise AssertionError("E restart: the first answer differs from before")
+        log(f"E App restart with the coalescer on: {D_N} objects, schema, LSM reopen and "
+            f"vector.log replay, REST up and the first query answered in {restart_s:.2f} s")
+        got = [None] * D_B
+
+        def coalesced(t):
+            for i in range(t, D_B, E_THREADS):
+                got[i] = gql_rows(http(port, "POST", "/v1/graphql", {"query": gql_near(q_b[i])})[1])
+
+        threads = [threading.Thread(target=coalesced, args=(t,)) for t in range(E_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for i, (ids, d) in enumerate(got):
+            if ids != want_ids[i].tolist():
+                raise AssertionError(f"E coalesced query {i}: {ids} / direct {want_ids[i]}")
+            np.testing.assert_allclose(d, want_d[i], rtol=1e-5)
+        log(f"E coalesced == direct on {D_B} queries from {E_THREADS} threads: ids equal, "
+            f"distances within rtol 1e-5")
+        lat = []
+        for _ in range(E_REPS):
+            t1 = time.perf_counter()
+            st, rep = http(port, "POST", "/v1/graphql/batch", body)
+            lat.append(time.perf_counter() - t1)
+        if ids_matrix([gql_rows(r) for r in rep]).tolist() != want_ids.tolist():
+            raise AssertionError("E coalesced /v1/graphql/batch: answers differ from direct")
+        p50_batch_c = float(np.median(lat))
+        log(f"E REST /v1/graphql/batch of {D_B} queries with the coalescer (its slots run "
+            f"concurrently into shared lanes): {['%.1f ms' % (t * 1e3) for t in lat]}, p50 "
+            f"{p50_batch_c * 1e3:.2f} ms")
+
+        st0 = app.coalescer.stats()
+        lat_load: list[float] = []
+        lock = threading.Lock()
+        stop_at = time.perf_counter() + E_LOAD_S
+
+        def load(t):
+            i, mine = t, []
+            while time.perf_counter() < stop_at:
+                t1 = time.perf_counter()
+                gql_rows(http(port, "POST", "/v1/graphql",
+                              {"query": gql_near(q_all[i % BATCH])})[1])
+                mine.append(time.perf_counter() - t1)
+                i += E_THREADS
+            with lock:
+                lat_load.extend(mine)
+
+        threads = [threading.Thread(target=load, args=(t,)) for t in range(E_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        time.sleep(E_LOAD_S / 3)
+        st, text = http(port, "GET", "/debug/pprof/trace?seconds=1")
+        for t in threads:
+            t.join()
+        load_s = time.perf_counter() - t0
+        st1 = app.coalescer.stats()
+        d_disp = st1["dispatches"] - st0["dispatches"]
+        fill = (st1["rows"] - st0["rows"]) / max(d_disp, 1)
+        qps = len(lat_load) / load_s
+        p50_c, p99_c = (float(np.percentile(lat_load, p)) for p in (50, 99))
+        log(f"E coalesced load: {E_THREADS} threads of single-query GraphQL nearVector for "
+            f"{load_s:.1f} s: {len(lat_load)} requests, {qps:.0f} QPS, p50 {p50_c * 1e3:.2f} ms, "
+            f"p99 {p99_c * 1e3:.2f} ms; {d_disp} dispatches, mean lane fill {fill:.1f} rows")
+        trace_dir = text.splitlines()[0].split(" to ", 1)[1].strip()
+        trace_file = os.path.join(trace_dir, "trace.json")
+        with open(trace_file) as f:
+            k1_events = f.read().count("F32Tile")
+        log(f"E device trace through /debug/pprof/trace?seconds=1 during the load: {trace_file}, "
+            f"{os.path.getsize(trace_file)} bytes, {k1_events} mentions of K1's kernel "
+            f"(resident_kernel<F32Tile>)")
+        if st != 200 or k1_events == 0:
+            raise AssertionError("E device trace: no K1 launch in the trace")
+        launches = gmin_scan.launches
+        log(f"E K1 launches on the main path {launches}")
+        if launches < E_REPS + 1:
+            raise AssertionError(f"E: {launches} K1 launches on the main path")
+        log(f"[{card}] E end to end ({D_N} objects, k={K}): import {D_N / import_s:.0f} "
+            f"objects/s; REST GraphQL p50 {p50_rest * 1e3:.2f} ms p99 {p99_rest * 1e3:.2f} ms; "
+            f"graphql/batch {D_B} p50 {p50_batch * 1e3:.2f} ms (coalesced "
+            f"{p50_batch_c * 1e3:.2f} ms); gRPC BatchSearch {D_B} p50 "
+            f"{grpc_out[D_B][0] * 1e3:.2f} ms, {BATCH} p50 {grpc_out[BATCH][0] * 1e3:.2f} ms "
+            f"(raw lane); recall@10 REST {r_rest:.4f}, "
+            f"batch {r_batch:.4f}, filter {r_filter:.4f}, gRPC "
+            f"{'/'.join('%.4f' % v[1] for v in grpc_out.values())}; coalesced {qps:.0f} QPS p50 "
+            f"{p50_c * 1e3:.2f} ms p99 {p99_c * 1e3:.2f} ms lane fill {fill:.1f}; restart "
+            f"{restart_s:.2f} s; busy "
+            + ", ".join(f"{k} {v[1] / v[0]:.1%}" for k, v in busy.items()))
+        del x_dev
+    finally:
+        if client is not None:
+            client.close()
+        if gsrv is not None:
+            gsrv.stop()
+        if srv is not None:
+            srv.stop()
+        if app is not None:
+            app.shutdown()
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     return {"launches": launches, "max_abs_err": max_err}
@@ -1546,13 +1932,18 @@ def main() -> int:
     t0 = time.perf_counter()
     phase("workload D")
     d_row = shard_workload(dev, card, args.seed)
-    log(f"workload D: {time.perf_counter() - t0:.1f} s; "
+    log(f"workload D: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase("workload E")
+    e_row = app_workload(dev, card, args.seed)
+    log(f"workload E: {time.perf_counter() - t0:.1f} s; "
         f"total {time.perf_counter() - t_start:.1f} s")
 
-    # 6. result lines: K1's launches include D's (the Shard's main path),
-    # K1-bf16's the bf16-store run's
-    k1_f32["launches"] += d_row["launches"]
-    k1_f32["max_abs_err"] = max(k1_f32["max_abs_err"], d_row["max_abs_err"])
+    # 6. result lines: K1's launches include D's and E's (the Shard's and
+    # the App's main paths), K1-bf16's the bf16-store run's
+    for row in (d_row, e_row):
+        k1_f32["launches"] += row["launches"]
+        k1_f32["max_abs_err"] = max(k1_f32["max_abs_err"], row["max_abs_err"])
     k1_bf16 = pq_rows[0]
     k1_bf16["launches"] += a16["launches"]
     k1_bf16["max_abs_err"] = max(k1_bf16["max_abs_err"], a16["max_abs_err"])

@@ -494,3 +494,74 @@ def test_bf16_store_k1_matches_plain_version_through_the_index(card, tmp_path):
     ids_c, dists_c = idx["cpu"].search_by_vectors(q, 10)
     np.testing.assert_array_equal(ids, ids_c)
     np.testing.assert_allclose(dists, dists_c, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_app_on_card_under_concurrent_rest_and_the_coalescer(card, tmp_path):
+    """The port's App on the card with the coalescer on: 16 REST client
+    threads send single-query GraphQL nearVector requests at once, so the
+    handler threads, the coalescer's flusher and the pinned staging pool
+    all reach one index. Every answer equals the same App's sequential
+    answer on the CPU (ids equal, distances rtol 1e-5, atol 1e-5), the
+    lanes merge requests, and K1 runs."""
+    import json
+    import threading
+    import urllib.request
+    import uuid as uuidlib
+
+    from weaviate_tpu_torch.config import Config
+    from weaviate_tpu_torch.server import App, RestServer
+
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((20000, 64)).astype(np.float32)
+    qs = rng.standard_normal((128, 64)).astype(np.float32)
+    apps = {}
+    for name, dev in (("card", card), ("cpu", "cpu")):
+        cfg = Config()
+        cfg.coalescer.enabled = True
+        cfg.coalescer.window_ms = 20.0
+        app = App(config=cfg, data_path=str(tmp_path / name), device=dev)
+        app.schema.add_class({"class": "Doc", "vectorIndexType": "hnsw_tpu",
+                              "vectorIndexConfig": {"distance": "l2-squared"},
+                              "properties": [{"name": "rank", "dataType": ["int"]}]})
+        app.batch.add_objects([{"class": "Doc", "id": str(uuidlib.UUID(int=i + 1)),
+                                "properties": {"rank": i}, "vector": x[i].tolist()}
+                               for i in range(len(x))])
+        srv = RestServer(app, port=0)
+        srv.start()
+        apps[name] = (app, srv)
+
+    def near(port, q):
+        body = {"query": "{ Get { Doc(nearVector: {vector: %s}, limit: 10) "
+                         "{ _additional { id distance } } } }" % json.dumps(q.tolist())}
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/graphql",
+                                     data=json.dumps(body).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            rows = json.loads(r.read())["data"]["Get"]["Doc"]
+        return ([r["_additional"]["id"] for r in rows],
+                np.array([r["_additional"]["distance"] for r in rows]))
+
+    try:
+        want = [near(apps["cpu"][1].port, q) for q in qs]
+        got = [None] * len(qs)
+        launches0 = gmin_scan.launches
+
+        def client(t):
+            for i in range(t, len(qs), 16):
+                got[i] = near(apps["card"][1].port, qs[i])
+
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        for g, w in zip(got, want):
+            assert g is not None and g[0] == w[0]
+            np.testing.assert_allclose(g[1], w[1], rtol=1e-5, atol=1e-5)
+        st = apps["card"][0].coalescer.stats()
+        assert st["requests"] == len(qs) and st["dispatches"] < len(qs)
+        assert gmin_scan.launches > launches0
+    finally:
+        for app, srv in apps.values():
+            srv.stop()
+            app.shutdown()

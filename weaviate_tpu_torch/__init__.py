@@ -6,7 +6,8 @@ The package mirrors `weaviate_tpu/` path for path (the one rename is
 nothing of `weaviate_tpu`: host modules it needs are copied here.
 
 Entry points run on the CUDA card unless the caller passes
-`device="cpu"` (see `device.resolve_device`); the hand-written Hopper
+`device="cpu"` (see `device.resolve_device`); the server is
+`python -m weaviate_tpu_torch [--device cpu]`. The hand-written Hopper
 kernels live under `csrc/` and build at first use (`ops/_kernels.py`).
 """
 

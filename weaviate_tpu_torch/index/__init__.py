@@ -13,7 +13,7 @@ __all__ = ["VectorIndex", "new_vector_index"]
 # the ROADMAP item that brings each
 _LATER = {
     "hnsw_tpu_mesh": "the multi-device mesh index (ROADMAP queue 1, item 10)",
-    "hnsw": "the native CPU graph engine (not in the port's queues yet)",
+    "hnsw": "the native CPU graph engine (ROADMAP queue 1, item 16)",
 }
 
 

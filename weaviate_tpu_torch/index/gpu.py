@@ -106,6 +106,12 @@ from weaviate_tpu_torch.ops.distances import DISTANCE_FNS
 from weaviate_tpu_torch.ops.topk import (bitmap_to_mask, merge_top_k, pack_topk,
                                          rescore_distances, smallest_k,
                                          translate_pack, unpack_fused, unpack_topk)
+# the self-tuning control plane (serving/controller.py): its recall-guarded
+# budgets cap the chunked scan's candidate depth (_rescore_r), the codes
+# tier's candidate pool and the 4-bit funnel's two stages; unconfigured,
+# each cap is one comparison that returns the ladder's top bucket.
+# controller imports nothing from the index layer, so no cycle.
+from weaviate_tpu_torch.serving import controller
 from weaviate_tpu_torch.storage.bitmap import (Bitmap, allowed_mask,
                                                pack_allow_words)
 from weaviate_tpu_torch.testing import faults, sanitizers
@@ -1646,12 +1652,20 @@ class GpuVectorIndex(VectorIndex):
 
     def _rescore_r(self, k: int, n: int) -> int:
         """Chunked-scan candidate depth for the exact rescore: 4k clamped
-        to the RESCORE_R_BUCKETS ends; 0 (no rescore) for exactTopK, the
-        non-matmul metrics, or when the depth would leave no slack over
-        k."""
+        to RESCORE_R_BUCKETS[0] below and the control plane's
+        `rescore_r_cap` (the top bucket without a plane) above; 0 (no
+        rescore) for exactTopK, the non-matmul metrics, or when the depth
+        would leave no slack over k."""
         if self.config.exact_topk or self.metric not in vi.MATMUL_DISTANCES:
             return 0
-        r = int(min(max(4 * k, RESCORE_R_BUCKETS[0]), RESCORE_R_BUCKETS[-1], max(n, 1)))
+        r_top = RESCORE_R_BUCKETS[-1]
+        r_max = controller.rescore_r_cap(r_top)
+        if r_max < 2 * k:
+            # a cap below this query's slack threshold would zero r and
+            # force the exact scan, more work than the static path: the
+            # budget may only cut, so such queries keep the top bucket
+            r_max = r_top
+        r = int(min(max(4 * k, RESCORE_R_BUCKETS[0]), r_max, max(n, 1)))
         return r if r >= 2 * k else 0
 
     def _gen_blocks(self, name: str, src: torch.Tensor, gen: int, build) -> torch.Tensor:
@@ -1968,10 +1982,20 @@ class GpuVectorIndex(VectorIndex):
 
     def _funnel_budgets(self, k: int, n: int) -> tuple[int, int]:
         """(rg4 stage-1 groups, rc stage-2 survivors) of a funnel whose scan
-        plane holds n rows (the slab capacity): the top buckets of the two
-        funnel ladders, which is what the JAX package reads without a
-        control plane."""
-        return pq4.plan_funnel(k, n, PQ4_FUNNEL_C_BUCKETS[-1], PQ4_FUNNEL_RESCORE_BUCKETS[-1])
+        plane holds n rows (the slab capacity). The two caps are the control
+        plane's recall-guarded budgets (`funnel_c_cap`,
+        `funnel_rescore_cap`; the ladders' top buckets without a plane); a
+        cap too shallow for this query's k lapses to the top bucket (the
+        plane may only cut work, never break coverage)."""
+        c_top = PQ4_FUNNEL_C_BUCKETS[-1]
+        rc_top = PQ4_FUNNEL_RESCORE_BUCKETS[-1]
+        c_cap = controller.funnel_c_cap(c_top)
+        rc_cap = controller.funnel_rescore_cap(rc_top)
+        if c_cap < 4 * k:
+            c_cap = c_top
+        if rc_cap < 2 * k:
+            rc_cap = rc_top
+        return pq4.plan_funnel(k, n, c_cap, rc_cap)
 
     def _pq4_funnel_or_none(self, snap: IndexSnapshot, q: torch.Tensor, k: int,
                             allow_words, use_allow: bool, s2d):
@@ -2061,6 +2085,14 @@ class GpuVectorIndex(VectorIndex):
             # stays >= 512 (pq.rescoreLimit) whatever the chunk count
             nchunks = max(1, -(-snap.n // _SCAN_CHUNK))
             pool_target = pqc.rescore_limit or 1024
+            r_top = RESCORE_R_BUCKETS[-1]
+            r_cap = controller.rescore_r_cap(r_top)
+            if r_cap < r_top:
+                # the plane's cap scales the pool too; the floor keeps the
+                # pool's own recall guarantee without ever raising a
+                # configured rescore_limit below 512 (the plane only cuts)
+                pool_target = max(int(pool_target * r_cap / r_top),
+                                  min(512, pool_target))
             r_chunk = min(max(2 * k, -(-pool_target // nchunks), 64), 256, snap.n)
             r_chunk = max(r_chunk, min(-(-k // nchunks), snap.n))  # the pool covers k
             top, idx = _search_pq_recon(
@@ -2309,9 +2341,9 @@ class GpuVectorIndex(VectorIndex):
                 out["pq"]["funnel"] = {
                     "stage1_c": rg4 * 16,
                     "stage2_rescore": rc,
-                    # no control plane in the port: the caps are the top buckets
-                    "c_cap": PQ4_FUNNEL_C_BUCKETS[-1],
-                    "rescore_cap": PQ4_FUNNEL_RESCORE_BUCKETS[-1],
+                    "c_cap": controller.funnel_c_cap(PQ4_FUNNEL_C_BUCKETS[-1]),
+                    "rescore_cap": controller.funnel_rescore_cap(
+                        PQ4_FUNNEL_RESCORE_BUCKETS[-1]),
                     "dispatches": st["dispatches"],
                     "mean_stage1_rows": round(st["stage1_rows"] / d, 1),
                     "mean_stage2_survivors": round(st["stage2_survivors"] / d, 1),

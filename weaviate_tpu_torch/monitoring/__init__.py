@@ -2,7 +2,9 @@
 (metrics, the cost model, the perf window, tracing, the memory ledger,
 the quality auditor, the incident journal) with the device hooks read
 through torch: the H100's datasheet peaks (`costmodel.PEAKS`) and the
-caching allocator's stats (`memory`). `profiling.py` is not ported yet."""
+caching allocator's stats (`memory`); `profiling` (pprof's surface, with a
+torch.profiler device trace) and `disk` (disk-pressure read-only
+automation)."""
 
 from weaviate_tpu_torch.monitoring.metrics import (
     Metrics,

@@ -25,9 +25,9 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-# the repo's native/lsm_get.cpp, built with the host compiler at first
-# use into the checkout's git-ignored build/native/, under a name keyed
-# by the source's content (an edited source rebuilds)
+# the repo's native/*.cpp, built with the host compiler at first use into
+# the checkout's git-ignored build/native/, under a name keyed by the
+# source's content (an edited source rebuilds)
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _NATIVE_DIR = os.path.join(_REPO, "build", "native")
 _SRC_PATH = os.path.join(_REPO, "native", "lsm_get.cpp")
@@ -37,10 +37,33 @@ _lib_failed = False
 _lib_lock = threading.Lock()
 
 
-def _so_path() -> str:
-    with open(_SRC_PATH, "rb") as f:
+def so_path(src_path: str, stem: str) -> str:
+    """build/native/lib<stem>_<hash of the source>.so for native/<src>."""
+    with open(src_path, "rb") as f:
         key = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(_NATIVE_DIR, f"liblsmget_{key}.so")
+    return os.path.join(_NATIVE_DIR, f"lib{stem}_{key}.so")
+
+
+def build_host_library(src_path: str, stem: str) -> str:
+    """Build src_path with the host compiler into so_path(src_path, stem)
+    unless it is there; -> its path. Raises when the build fails."""
+    out = so_path(src_path, stem)
+    if not os.path.exists(out):
+        os.makedirs(_NATIVE_DIR, exist_ok=True)
+        # a private temporary file renamed into place: concurrent first
+        # builds never load a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_NATIVE_DIR)
+        os.close(fd)
+        try:
+            subprocess.run(
+                ["g++", "-O3", "-march=native", "-std=c++17", "-shared",
+                 "-fPIC", "-o", tmp, src_path],
+                check=True, capture_output=True)
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return out
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -51,23 +74,7 @@ def _load() -> Optional[ctypes.CDLL]:
         if _lib is not None or _lib_failed:
             return _lib
         try:
-            so_path = _so_path()
-            if not os.path.exists(so_path):
-                os.makedirs(_NATIVE_DIR, exist_ok=True)
-                # a private temporary file renamed into place: concurrent
-                # first builds never load a half-written library
-                fd, tmp = tempfile.mkstemp(suffix=".so", dir=_NATIVE_DIR)
-                os.close(fd)
-                try:
-                    subprocess.run(
-                        ["g++", "-O3", "-march=native", "-std=c++17", "-shared",
-                         "-fPIC", "-o", tmp, _SRC_PATH],
-                        check=True, capture_output=True)
-                    os.replace(tmp, so_path)
-                finally:
-                    if os.path.exists(tmp):
-                        os.remove(tmp)
-            lib = ctypes.CDLL(so_path)
+            lib = ctypes.CDLL(build_host_library(_SRC_PATH, "lsmget"))
             lib.lsm_seg_open.restype = ctypes.c_void_p
             lib.lsm_seg_open.argtypes = [ctypes.c_char_p]
             lib.lsm_seg_close.restype = None
