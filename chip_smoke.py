@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (weaviate_tpu_torch) on one NVIDIA card at
 the headline scale and at the PQ configuration's, run its stage profiler
 at full width, drive its Shard and its App (REST, GraphQL, gRPC, the
-coalescer) at 1M objects, and check them.
+coalescer) at 2^18 objects, its IVF scan plane on the headline's data and
+its device BM25 engine on passage-length documents, and check them.
 
     python3 chip_smoke.py [--seed 7]
 
@@ -29,6 +30,16 @@ B. BASELINE.json config 4, PQ-compressed HNSW on Sphere-1M's shape:
    For B2 and B3, 256 queries also run the same op on CPU copies of the
    snapshot's tensors (each wrapper then takes its plain version): the
    ids must overlap the card's at >= 0.99, distances agree to rtol 1e-4.
+   After those checks, B2 and B3 switch IVF on (IVF_NLIST 2048,
+   IVF_TRAIN_ITERS 2, the rest at their defaults: a cheaper host training
+   than F's) and train it through the index's own write path (doc 0
+   re-added): `search_ivf_codes` and `search_ivf_pq4` at D 768, B 256 p50
+   and recall@10 printed, top_p = nlist on 16 queries against the flat
+   tier (B2: the exact-ADC reconstruction scan, equal; B3: the flat
+   funnel's overlap is printed, its stage 1 keeps column groups where the
+   probed one keeps rows, and the answer is held, overlap >= 0.99, against
+   the same funnel over one bucket of every row), and the 256-query
+   card-vs-CPU check.
 On A, B1, B2 and B3 the sync batches run again with the fused-dispatch
 toggle off (the staged dispatch: slot indices fetched, translated on the
 host); their ids and distances must equal the fused ones bit for bit.
@@ -49,10 +60,11 @@ C. the stage profiler (`weaviate_tpu_torch.tools.profile_gmin`) at its
    timed beside K1 on the untransposed store at the same shape.
 
 D. the Shard (`weaviate_tpu_torch.db.shard.Shard`) at full width: one
-   class of 1,048,576 objects with SIFT-shaped clustered vectors (the
-   headline generator, D 128, seed + 3), l2, k=10, two properties (`tag`,
-   text with 32 values, 32768 rows each: the gather tier; `bucket`, int
-   0-999, `bucket < 500` ~524k rows: the masked K1 scan), imported through
+   class of 262,144 objects (2^18; 2^20 until F and G joined the run) with
+   SIFT-shaped clustered vectors (the headline generator, D 128, seed + 3),
+   l2, k=10, two properties (`tag`, text with 32 values, 8192 rows each:
+   the gather tier; `bucket`, int 0-999, `bucket < 500` ~131k rows: the
+   masked K1 scan), imported through
    `Shard.put_batch` in batches of 10,000 and flushed to LSM segments.
    Its main path (K1's count set to 0 just before, read just after):
    `object_vector_search` at B 256, hydrated, 7 runs (p50, recall@10
@@ -72,7 +84,7 @@ D. the Shard (`weaviate_tpu_torch.db.shard.Shard`) at full width: one
 
 E. the App (`weaviate_tpu_torch.server.App` on the card, its default
    config: the reference App's LSM settings) at D's size: D's class
-   created through REST `POST /v1/schema`, 1,048,576 objects with D's
+   created through REST `POST /v1/schema`, 262,144 objects with D's
    generator (seed + 5) imported through `app.batch` (the use case under
    `/v1/batch/objects`) in batches of 10,000 and one real REST `POST
    /v1/batch/objects` of 1,000 JSON objects, flushed to segments; K1 held
@@ -92,6 +104,38 @@ E. the App (`weaviate_tpu_torch.server.App` on the card, its default
    through `GET /debug/pprof/trace?seconds=1` during that load must name
    K1's kernel. Whether the machine has grpc and protobuf is probed with
    importlib.util.find_spec and printed; without them phase E fails.
+
+F. the IVF scan plane (ops/ivf.py) on A's data (1M x 128 f32, seed 7,
+   l2, uncompressed) with every IVF knob at its default (nlist auto 4096,
+   top_p auto 256, no PCA), trained by the import through `add_batch`
+   (the host training timed). Its main path: sync batches at B 256 (7
+   runs) and B 16384 (3 runs), recall@10 >= 0.95 against exact f32 on 1024
+   queries, probed_fraction; the same index's flat tier (K1, IVF off) at
+   both sizes beside it, and one torch.profiler batch of each at 16384;
+   fused == staged bit for bit; a masked allowList of half the rows
+   (recall >= 0.95, every id in the list); 1000 deletes never returned;
+   top_p = nlist on 16 queries equal to the exact tier (ids; distances
+   rtol 1e-5); a restart whose replay retrains the same layout and
+   answers the same; then a second index with IVF_PCA_DIM 32 (the
+   prefilter): recall@10 >= 0.90 and its B 256 p50.
+
+G. device BM25: a Shard with `invertedIndexConfig.bm25.device` and one
+   text property `body`, 131,072 passage-length documents (50 words each,
+   Zipf s = 1 over a 30,000-word vocabulary, seed + 9: the shape of MS
+   MARCO passage ranking, cut from its 8.8M passages because the host's
+   inverted-index import is slow) through `Shard.put_batch`; 256 queries
+   of 2-8 words from the same distribution through `object_search` one
+   at a time and through `keyword_search_batch` all at once, and 64 of
+   them through the engine with allowLists of ~10% and ~60% of the rows.
+   Every device answer agrees with the host MaxScore engine (scores rank
+   by rank at rtol 1e-5, every id a genuine scorer at its level); the
+   import rate, the p50 of one keyword query on each engine, the batch
+   lane's p50 and its busy share are printed.
+
+    python3 chip_smoke.py --only F,G
+
+runs only the named workloads (a subset of A,B,A16,C,D,E,F,G) and prints
+no result lines: a quick card check of one part.
 
     python3 chip_smoke.py --busy-share CHECKOUT
 
@@ -121,7 +165,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    profiler modes with their launch counts (each count set to 0 just
    before the modes run and read just after), K1's time on the same store
    and shape, then the layout kernels' timings and their ratio to it;
-6. A-bf16, then D, then E (each names itself on stderr);
+6. A-bf16, then D, then E, then F, then G (each names itself on stderr);
 7. the card line, one JSON line of per-kernel numbers (K1's launches and
    max abs error include D's and E's, K1-bf16's the A-bf16 run's), the
    result line.
@@ -168,9 +212,9 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-3
 KERNELS = ("gmin_scan", "pq_gmin", "gmin_layouts")  # the CUDA sources
 PROF_N, PROF_ITERS = 1 << 20, 8  # workload C: the profiler's default shape
-D_N = 1 << 20             # workload D: objects in the shard
+D_N = 1 << 18             # workload D: objects in the shard (2^20 until F and G joined)
 D_IMPORT = 10_000         # objects per Shard.put_batch
-D_TAGS, D_BUCKETS = 32, 1000  # tag values (32768 rows each), bucket range
+D_TAGS, D_BUCKETS = 32, 1000  # tag values (8192 rows each), bucket range
 D_B, D_REPS = 256, 7      # hydrated batch (bench.py's _grpc_e2e shape), timed runs
 D_RAW_REPS = 5            # timed raw-lane batches of BATCH queries
 D_HOST_B, D_EXACT_B = 64, 4  # host-plane batch; rows per exact-tier device call (B < 8)
@@ -188,8 +232,16 @@ E_REST_REQS = 64          # single-query GraphQL requests (p50, p99)
 E_FILTER_REQS = 32        # single-query GraphQL requests with the tag filter (gather tier)
 E_REPS, E_RAW_REPS = 5, 3  # timed /v1/graphql/batch and BatchSearch 256; BatchSearch 16384
 E_THREADS, E_LOAD_S = 64, 10.0  # coalesced load: client threads, seconds
+F_B, F_REPS, F_BIG_REPS = 256, 7, 3  # workload F: small batch; timed runs at B 256 and 16384
+F_PCA_DIM, F_PCA_BAR = 32, 0.90  # F's prefilter index (tests/test_ivf.py:309's bar)
+# B2's and B3's IVF layouts: half F's partitions and two k-means passes, so
+# that two host trainings at D 768 fit the run's time beside F's three
+B_IVF = {"nlist": 2048, "train_iters": 2}
+G_N, G_WORDS, G_VOCAB = 131072, 50, 30000  # workload G: documents, words each, vocabulary
+G_Q, G_IMPORT = 256, 8192  # keyword queries (2-8 words); documents per Shard.put_batch
+G_ALLOW_Q, G_BATCH_REPS = 64, 5  # queries per allowList; timed runs of the batch lane
 BUSY_REPS = 3             # profiled batches per workload of --busy-share
-WATCHDOG_S = 1140  # seconds: a run past this has stalled (a whole run takes ~680 s)
+WATCHDOG_S = 1140  # seconds: a run past this has stalled (a whole run takes ~900 s)
 T_START = time.perf_counter()
 
 
@@ -825,6 +877,8 @@ def pq_workload(dev, card, seed):
         log(f"[{card}] B2 end to end: ADC recall@10 {r_adc:.4f}, exact recall@10 {r_exact:.4f}, "
             f"sync p50 {p50 * 1e3:.1f} ms (staged {staged_p50 * 1e3:.1f} ms), pipelined "
             f"{qps:.0f} QPS, import incl. compress {N / ingest_s:.0f} rows/s")
+        phase("B2 IVF")
+        ivf_compressed("B2", card, idx, vecs, batches[0][gt_rows], gt, q_cpu, True)
         keep["k2"] = (codes3.clone(), cb.clone(), biases[0][2], ncols, ag)
         out["k2"] = dict(launches=launches, max_abs_err=err)
         idx.shutdown()
@@ -888,6 +942,8 @@ def pq_workload(dev, card, seed):
         log(f"[{card}] B3 end to end: exact recall@10 {r_exact:.4f}, sync p50 {p50 * 1e3:.1f} ms "
             f"(staged {staged_p50 * 1e3:.1f} ms), pipelined {qps:.0f} QPS, import incl. compress "
             f"{N / ingest_s:.0f} rows/s")
+        phase("B3 IVF")
+        ivf_compressed("B3", card, idx, vecs, batches[0][gt_rows], gt, q_cpu, False)
         keep["k3"] = (codes3p.clone(), cb4.clone(), biases[0][2], ncols, ag)
         out["k3"] = dict(launches=launches, max_abs_err=err)
         idx.shutdown()
@@ -1113,7 +1169,7 @@ def check_k1_on_shard(label, what, shard, q_raw, dev, seed, sizes) -> float:
 
 
 def shard_workload(dev, card, seed) -> dict:
-    """The Shard over the port's index at 1M objects: import, the
+    """The Shard over the port's index at D_N objects: import, the
     hydrated and raw read lanes, filters, deletes, the host plane, the
     breaker, compaction and restart. -> K1's launches on the main path."""
     from weaviate_tpu_torch.db.shard import Shard
@@ -1216,8 +1272,8 @@ def shard_workload(dev, card, seed) -> dict:
         hyd_note = "not measured" if busy_h is None else f"{prof_h[1]:.2f} ms, {busy_h:.1%} busy"
         log(f"[{card}] D device ms over the unprofiled p50: raw lane {raw_note}; "
             f"hydrated {hyd_note}")
-        # filters: one tag value (32768 rows < flatSearchCutoff 40000: the
-        # gather tier) and bucket < 500 (~524k rows: the masked scan)
+        # filters: one tag value (8192 rows < flatSearchCutoff 40000: the
+        # gather tier) and bucket < 500 (~131k rows: the masked scan)
         q_f = torch.from_numpy(q_hyd).to(dev)
         recalls = {}
         for label, flt, allowed, tier, bar in (
@@ -1711,6 +1767,471 @@ def app_workload(dev, card, seed) -> dict:
     return {"launches": launches, "max_abs_err": max_err}
 
 
+# -- workload F: the IVF scan plane on A's data ---------------------------------------
+
+def use_ivf(enabled=True, **kw) -> None:
+    """Set the process-wide IVF settings (index/gpu.set_ivf_config): on
+    with the given knobs (the rest at their defaults), or off."""
+    from weaviate_tpu_torch.config.config import IvfConfig
+    from weaviate_tpu_torch.index import gpu
+    gpu.set_ivf_config(IvfConfig(enabled=enabled, **kw))
+
+
+def timed_training(idx) -> list:
+    """Wrap the index's training pass to record its seconds (the write path
+    that runs it stays the index's own)."""
+    secs, train = [], idx._ivf_train_locked
+
+    def timed(s):
+        t0 = time.perf_counter()
+        train(s)
+        secs.append(time.perf_counter() - t0)
+
+    idx._ivf_train_locked = timed
+    return secs
+
+
+def p50_ms(lat) -> float:
+    return float(np.median(lat[1:])) * 1e3
+
+
+def batch_runs(idx, q, reps):
+    """reps sync batches of q -> (latencies s, last ids, last dists)."""
+    lat = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        ids, d = idx.search_by_vectors(q, K)
+        lat.append(time.perf_counter() - t0)
+    return lat, ids, d
+
+
+def in_blocks(idx, q, rows):
+    """q through the index in `rows`-query batches -> (ids, dists)."""
+    parts = [idx.search_by_vectors(q[i:i + rows], K) for i in range(0, len(q), rows)]
+    return np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts])
+
+
+def same_answers(label, ids, d, want_ids, want_d, atol=0.0) -> None:
+    if not np.array_equal(ids, want_ids):
+        bad = int((ids != want_ids).any(1).sum())
+        raise AssertionError(f"{label}: ids differ in {bad} of {len(ids)} rows")
+    np.testing.assert_allclose(d, want_d, rtol=1e-5, atol=atol, err_msg=label)
+
+
+def ivf_workload(dev, card, seed) -> None:
+    """The IVF plane (ops/ivf.py) on A's data at full width: 1M x 128 f32,
+    l2, every IVF knob at its default (nlist auto 4096, top_p auto 256, no
+    PCA), trained by the import through `add_batch`. The main path at B 256
+    and B 16384 beside the flat tier of the same index; recall, fused ==
+    staged, a masked allowList, deletes, top_p = nlist == the exact tier,
+    restart; then a second index with the PCA prefilter (IVF_PCA_DIM 32)."""
+    from weaviate_tpu_torch.entities.vectorindex import parse_and_validate_config
+    from weaviate_tpu_torch.index import gpu, new_vector_index
+    from weaviate_tpu_torch.storage.bitmap import Bitmap
+
+    rng = np.random.default_rng(seed)  # A's data
+    vecs = make_data(N, DIM, rng)
+    batches = queries(vecs, rng)
+    q_big = batches[0]
+    gt_rows = np.arange(0, BATCH, BATCH // N_GT)
+    q_gt = q_big[gt_rows]
+    q256 = q_gt[:F_B]
+    x_dev = torch.from_numpy(vecs).to(dev)
+    gt = exact_topk(torch.from_numpy(q_gt).to(dev), x_dev, K)
+    cfg = parse_and_validate_config("hnsw_tpu", {"distance": "l2-squared"})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_f_")
+    use_ivf()
+    out = {}
+    try:
+        idx = new_vector_index(cfg, tmp)
+        train_s = timed_training(idx)
+        t0 = time.perf_counter()
+        idx.add_batch(np.arange(N), vecs)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        h = idx.health()["ivf"]
+        if not h["trained"] or len(train_s) != 1:
+            raise AssertionError(f"F: the import did not train one layout ({h})")
+        nlist, cap_p = h["nlist"], h["bucket_capacity"]
+        plan = idx._ivf_plan(idx._read_snapshot(), K)
+        log(f"F import: {N} rows through add_batch with IVF on, {import_s:.2f} s, of which the "
+            f"host training (k-means on {min(N, 65536)} rows, balanced assignment of {N}, "
+            f"buckets) {train_s[0]:.2f} s; nlist {nlist}, bucket capacity {cap_p}, top_p "
+            f"{plan[0]}, fill {h['buckets']['fill_min']}-{h['buckets']['fill_max']} "
+            f"(padding waste {h['buckets']['padding_waste']:.1%})")
+
+        # the main path: B 256 and B 16384 through the IVF plane
+        phase("F main path")
+        lat256, ids256, d256 = batch_runs(idx, q256, F_REPS)
+        lat_big, ids_big, d_big = batch_runs(idx, q_big, F_BIG_REPS)
+        st = idx.ivf_stats()
+        recall = recall_at_k(ids_big[gt_rows].astype(np.int64), gt)
+        if ids_big.shape != (BATCH, K) or not np.isfinite(d_big).all():
+            raise AssertionError(f"F: result {ids_big.shape} or non-finite distances")
+        if recall < RECALL_BAR or st["dispatches"] != F_REPS + F_BIG_REPS:
+            raise AssertionError(f"F: recall@10 {recall:.4f} < {RECALL_BAR} or "
+                                 f"{st['dispatches']} IVF dispatches")
+        out.update(ivf256=p50_ms(lat256), ivf_big=p50_ms(lat_big), recall=recall,
+                   probed=st["probed_fraction"])
+        log(f"F IVF sync: B {F_B} {['%.1f ms' % (t * 1e3) for t in lat256]}, B {BATCH} "
+            f"{['%.1f ms' % (t * 1e3) for t in lat_big]}; recall@10 {recall:.4f} vs exact f32 "
+            f"on {N_GT} queries; probed_fraction {st['probed_fraction']}")
+        staged_batches(idx, q256, 3, ids256, d256, "F")
+        busy_ivf = profile_sync_batch(lambda q: idx.search_by_vectors(q, K), q_big, card,
+                                      f"F IVF B {BATCH}")
+
+        # the same index's flat tier at the same batch sizes, IVF toggled off
+        use_ivf(False)
+        lat256_f, _, _ = batch_runs(idx, q256, F_REPS)
+        lat_big_f, ids_f, _ = batch_runs(idx, q_big, F_BIG_REPS)
+        busy_flat = profile_sync_batch(lambda q: idx.search_by_vectors(q, K), q_big, card,
+                                       f"F flat B {BATCH}")
+        recall_f = recall_at_k(ids_f[gt_rows].astype(np.int64), gt)
+        use_ivf()
+        out.update(flat256=p50_ms(lat256_f), flat_big=p50_ms(lat_big_f), recall_flat=recall_f)
+        log(f"F flat tier (K1) on the same index: B {F_B} "
+            f"{['%.1f ms' % (t * 1e3) for t in lat256_f]}, B {BATCH} "
+            f"{['%.1f ms' % (t * 1e3) for t in lat_big_f]}; recall@10 {recall_f:.4f}")
+
+        # a masked allowList of half the rows: through the probe's mask
+        allowed = np.arange(0, N, 2)
+        ids_a, _ = idx.search_by_vectors(q_gt, K, allow_list=Bitmap(allowed))
+        if (ids_a.astype(np.int64) % 2 != 0).any():
+            raise AssertionError("F: a filtered-out id came back")
+        gt_a = exact_topk(torch.from_numpy(q_gt).to(dev), x_dev[::2], K) * 2
+        r_a = recall_at_k(ids_a.astype(np.int64), gt_a)
+        if r_a < RECALL_BAR:
+            raise AssertionError(f"F: allowList recall@10 {r_a:.4f} < {RECALL_BAR}")
+        log(f"F allowList {len(allowed)} docs (the probe's mask): recall@10 {r_a:.4f}; "
+            "every id in the list")
+
+        # top_p = nlist on 16 queries: the exact tier's answer
+        q16 = q_gt[:16]
+        use_ivf(top_p=nlist)
+        if idx._ivf_plan(idx._read_snapshot(), K)[0] != nlist:
+            raise AssertionError("F: top_p = nlist did not probe every partition")
+        ids_all, d_all = idx.search_by_vectors(q16, K)
+        use_ivf(False)
+        ids_x, d_x = in_blocks(idx, q16, 4)  # batches under 8 rows: the exact tier
+        use_ivf()
+        same_answers("F top_p = nlist vs the exact tier", ids_all, d_all, ids_x, d_x)
+        log("F top_p = nlist on 16 queries: ids equal the exact tier's, distances within "
+            "rtol 1e-5")
+
+        ids_d, d_d = delete_check(idx, ids_big, q_big, N, "F")
+        buckets = idx._read_snapshot().ivf_buckets.cpu()
+        ids_d256, d_d256 = idx.search_by_vectors(q256, K)
+        idx.shutdown()
+        del idx
+        t0 = time.perf_counter()
+        idx = new_vector_index(cfg, tmp)
+        train_r = timed_training(idx)
+        ids_r, d_r = idx.search_by_vectors(q256, K)
+        restart_s = time.perf_counter() - t0
+        if not torch.equal(idx._read_snapshot().ivf_buckets.cpu(), buckets):
+            raise AssertionError("F: the restart retrained another layout")
+        same_answers("F restart", ids_r, d_r, ids_d256, d_d256)
+        log(f"F restart: replayed vector.log, retrained the same layout ({train_r[0]:.2f} s of "
+            f"training) and answered the same, {restart_s:.2f} s in all")
+        out.update(train=train_s[0], restart=restart_s)
+        idx.shutdown()
+        del idx
+        shutil.rmtree(tmp, ignore_errors=True)
+
+        # the PCA prefilter: a second index on the same data
+        phase("F prefilter")
+        use_ivf(pca_dim=F_PCA_DIM)
+        idx = new_vector_index(cfg, tmp)
+        train_p = timed_training(idx)
+        idx.add_batch(np.arange(N), vecs)
+        snap = idx._read_snapshot()
+        top_p, pre_c = idx._ivf_plan(snap, K)
+        if snap.ivf_pca_rows is None or not pre_c:
+            raise AssertionError("F prefilter: no PCA rows or no prefilter cut")
+        lat_p, _, _ = batch_runs(idx, q256, F_REPS)
+        ids_p, _ = in_blocks(idx, q_gt, F_B)
+        r_p = recall_at_k(ids_p.astype(np.int64), gt)
+        if r_p < F_PCA_BAR:
+            raise AssertionError(f"F prefilter recall@10 {r_p:.4f} < {F_PCA_BAR}")
+        log(f"F prefilter (IVF_PCA_DIM {F_PCA_DIM}): training {train_p[0]:.2f} s, top_p "
+            f"{top_p}, {pre_c} survivors of {top_p * snap.ivf_meta[1]} candidates; B {F_B} "
+            f"{['%.1f ms' % (t * 1e3) for t in lat_p]}; recall@10 {r_p:.4f} on {N_GT} queries")
+        out.update(pca256=p50_ms(lat_p), recall_pca=r_p)
+        idx.shutdown()
+        del idx, snap
+        log(f"[{card}] F end to end, k={K}, n={N}: IVF sync p50 B {F_B} {out['ivf256']:.1f} ms "
+            f"vs flat {out['flat256']:.1f} ms, B {BATCH} {out['ivf_big']:.1f} ms vs flat "
+            f"{out['flat_big']:.1f} ms; recall@10 {out['recall']:.4f} (flat "
+            f"{out['recall_flat']:.4f}); probed_fraction {out['probed']}; busy IVF "
+            f"{'not measured' if busy_ivf is None else f'{busy_ivf[0]:.1%}'}, flat "
+            f"{'not measured' if busy_flat is None else f'{busy_flat[0]:.1%}'}; training "
+            f"{out['train']:.2f} s; restart {out['restart']:.2f} s; prefilter B {F_B} "
+            f"{out['pca256']:.1f} ms at recall@10 {out['recall_pca']:.4f}")
+    finally:
+        gpu.set_ivf_config(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    del x_dev
+    torch.cuda.empty_cache()
+
+
+def ivf_compressed(label, card, idx, vecs, q_gt, gt, q_cpu, exact_ref) -> None:
+    """IVF over a compressed index of workload B (B_IVF's knobs), trained
+    through the index's own write path (a write after the settings turn
+    on: doc 0 re-added with its own vector), at D 768: B 256 p50 and recall, top_p =
+    nlist on 16 queries against the flat tier, and 256 queries against
+    the same op on CPU copies of the snapshot. exact_ref says how the top_p
+    = nlist answer is held: True for the codes tier (equal to the flat
+    reconstruction scan's exact-ADC answer, batches under 8 rows), False
+    for the funnel (its flat stage 1 keeps whole column groups and the
+    probed one single rows, so the two differ by design at this scale:
+    the flat overlap is printed, and the answer is held against the same
+    funnel over one bucket of every row, overlap >= 0.99: its stage-2
+    products may sum in another order)."""
+    from weaviate_tpu_torch.index import gpu
+    from weaviate_tpu_torch.ops import ivf as ivf_ops
+    from weaviate_tpu_torch.ops import pq4
+
+    use_ivf(**B_IVF)
+    try:
+        train_s = timed_training(idx)
+        idx.add(0, vecs[0])  # the write that trains, the same doc and vector
+        idx.flush()
+        snap = idx._read_snapshot()
+        if snap.ivf_buckets is None or len(train_s) != 1:
+            raise AssertionError(f"{label} IVF: the write did not train a layout")
+        nlist, cap_p, _ = snap.ivf_meta
+        top_p, pre_c = idx._ivf_plan(snap, K)
+        before = idx.ivf_stats()["dispatches"]
+        lat, _, _ = batch_runs(idx, q_gt[:F_B], F_REPS)
+        ids, d = in_blocks(idx, q_gt, F_B)
+        recall = recall_at_k(ids.astype(np.int64), gt)
+        if idx.ivf_stats()["dispatches"] - before != F_REPS + len(q_gt) // F_B:
+            raise AssertionError(f"{label} IVF: the batches did not take the IVF plane")
+        log(f"{label} IVF: trained through the write path in {train_s[0]:.2f} s (nlist {nlist}, "
+            f"bucket capacity {cap_p}, top_p {top_p}); B {F_B} "
+            f"{['%.1f ms' % (t * 1e3) for t in lat]}; recall@10 {recall:.4f} vs exact f32 on "
+            f"{len(q_gt)} queries (printed); probed_fraction "
+            f"{idx.ivf_stats()['probed_fraction']}")
+
+        q16 = q_gt[:16]
+        use_ivf(top_p=nlist, **B_IVF)
+        ids_all, d_all = idx.search_by_vectors(q16, K)
+        use_ivf(False)
+        if exact_ref:
+            ids_x, d_x = in_blocks(idx, q16, 4)
+            what = "the flat tier's answer (the exact-ADC reconstruction scan)"
+        else:
+            flat_ids, flat_d = idx.search_by_vectors(q16, K)
+            log(f"{label} IVF top_p = nlist on 16 queries: "
+                f"{tie_aware_hits(ids_all, d_all, flat_ids, flat_d):.4f} of the flat funnel's "
+                f"answer (no bar: its stage 1 keeps {idx._funnel_budgets(K, snap.capacity)[0]} "
+                "column groups, the probed one single rows)")
+            ids_x, d_x = one_bucket_funnel(idx, snap, q16, nlist * cap_p)
+            what = "the answer of the same funnel over one bucket of every row"
+        use_ivf(**B_IVF)
+        hits = tie_aware_hits(ids_all, d_all, ids_x, d_x)
+        for row in range(len(q16)):  # the distances of the ids both return
+            _, ci, pi = np.intersect1d(ids_all[row], ids_x[row], return_indices=True)
+            np.testing.assert_allclose(d_all[row, ci], d_x[row, pi], rtol=1e-5, atol=1e-4)
+        if hits < (1.0 if exact_ref else 0.99):
+            raise AssertionError(f"{label} IVF top_p = nlist: {hits:.4f} of {what}")
+        log(f"{label} IVF top_p = nlist on 16 queries: {hits:.4f} of {what} "
+            "(tie-aware), shared ids' distances within rtol 1e-5")
+
+        card_ids, card_d = idx.search_by_vectors(q_cpu, K)
+        qb, gp, steps2 = ivf_ops.plan_steps(len(q_cpu), cap_p, snap.dim, top_p, second=pre_c)
+        cpu = {name: getattr(snap, name).cpu() for name in (
+            "codes", "recon_norms", "tombs", "slot_to_doc_dev", "ivf_centroids", "ivf_buckets")}
+        q_c = torch.from_numpy(q_cpu)
+        pq8 = snap.pq
+        if snap.codes4 is None:
+            cpu_fn = lambda: ivf_ops.search_ivf_codes_fused(  # noqa: E731
+                cpu["codes"], cpu["recon_norms"], cpu["tombs"], snap.n, q_c, None,
+                pq8.codebook_dev().cpu(), cpu["ivf_centroids"], cpu["ivf_buckets"], None, None,
+                None if pq8.rotation_dev() is None else pq8.rotation_dev().cpu(),
+                cpu["slot_to_doc_dev"], K, "dot", False, top_p, pre_c, gp, steps2, qb=qb)
+        else:
+            rg4, rc = idx._funnel_budgets(K, top_p * cap_p)
+            c1 = min(rg4 * 16, top_p * cap_p)
+            qb, gp, steps2 = ivf_ops.plan_steps(len(q_cpu), cap_p, snap.dim, top_p, second=c1)
+            rot = snap.pq4.rotation_dev()
+            cpu_fn = lambda: pq4.search_ivf_pq4_fused(  # noqa: E731
+                snap.codes4.cpu(), cpu["codes"], snap.recon_norms4.cpu(), cpu["recon_norms"],
+                cpu["tombs"], snap.n, q_c, None, snap.pq4.codebook_dev().cpu(),
+                pq8.codebook_dev().cpu(), cpu["ivf_centroids"], cpu["ivf_buckets"],
+                None if rot is None else rot.cpu(), snap.rescore_dev.cpu(),
+                cpu["slot_to_doc_dev"], K, "dot", False, top_p, c1, rc, gp, steps2, qb=qb)
+        cpu_twin_check(f"{label} IVF", card_ids, card_d, cpu_fn)
+        log(f"[{card}] {label} IVF end to end, D {snap.dim}: B {F_B} sync p50 "
+            f"{p50_ms(lat):.1f} ms, recall@10 {recall:.4f}, training {train_s[0]:.2f} s")
+        del snap, cpu
+    finally:
+        gpu.set_ivf_config(None)
+
+
+def one_bucket_funnel(idx, snap, q, r_cand):
+    """The probed 4-bit funnel (ops/pq4.search_ivf_pq4) over one bucket that
+    holds every slot below n, with the stage budgets the index gives a
+    probe of r_cand candidates: what top_p = nlist must answer, since the
+    buckets partition those slots and every selection is exact. ->
+    (ids, dists) of the q rows."""
+    from weaviate_tpu_torch.ops import ivf as ivf_ops
+    from weaviate_tpu_torch.ops import pq4
+    from weaviate_tpu_torch.ops.topk import unpack_fused
+
+    dev = snap.codes4.device
+    rg4, rc = idx._funnel_budgets(K, r_cand)
+    c1 = min(rg4 * 16, r_cand)
+    bucket = torch.arange(snap.n, dtype=torch.int32, device=dev)[None, :]
+    centroid = torch.zeros((1, snap.dim), dtype=torch.float32, device=dev)
+    qb, gp, steps2 = ivf_ops.plan_steps(len(q), snap.n, snap.dim, 1, second=c1)
+    packed = pq4.search_ivf_pq4_fused(
+        snap.codes4, snap.codes, snap.recon_norms4, snap.recon_norms, snap.tombs, snap.n,
+        torch.from_numpy(np.ascontiguousarray(q)).to(dev), None, snap.pq4.codebook_dev(),
+        snap.pq.codebook_dev(), centroid, bucket, snap.pq4.rotation_dev(), snap.rescore_dev,
+        snap.slot_to_doc_dev, K, "dot", False, 1, c1, rc, gp, steps2, qb=qb)
+    ids, dists = unpack_fused(packed.cpu().numpy())
+    return ids, dists
+
+
+# -- workload G: device BM25 on passage-length documents --------------------------------
+
+def zipf_words(rng, count):
+    """count word ids, Zipf (s = 1) over the G_VOCAB-word vocabulary."""
+    ranks = np.arange(1, G_VOCAB + 1, dtype=np.float64)
+    return rng.choice(G_VOCAB, size=count, p=(1.0 / ranks) / (1.0 / ranks).sum())
+
+
+def bm25_agree(label, got, want_scores, truth) -> None:
+    """The tie-aware rule: device scores equal the host engine's rank by
+    rank (rtol 1e-5), and every device id is a genuine scorer at its level
+    (its host score equals the device score)."""
+    if len(got) != len(want_scores):
+        raise AssertionError(f"{label}: {len(got)} hits, the host engine {len(want_scores)}")
+    np.testing.assert_allclose([s for _, s, _ in got], want_scores, rtol=1e-5, err_msg=label)
+    np.testing.assert_allclose([truth[d] for d, _, _ in got], [s for _, s, _ in got],
+                               rtol=1e-5, err_msg=label)
+
+
+def bm25_workload(dev, card, seed) -> None:
+    """The Shard with `invertedIndexConfig.bm25.device`: G_N passage-length
+    documents (G_WORDS words, Zipf over G_VOCAB) imported through
+    `Shard.put_batch`; 256 queries of 2-8 words through `object_search`
+    (one at a time) and `keyword_search_batch` (all 256), and through the
+    engine with allowLists of ~10% and ~60% of the rows; every device
+    answer held against the host MaxScore engine (tie-aware)."""
+    from weaviate_tpu_torch.db.shard import Shard
+    from weaviate_tpu_torch.entities.schema import ClassDef, Property
+    from weaviate_tpu_torch.entities.storobj import StorObj
+    from weaviate_tpu_torch.entities.vectorindex import parse_and_validate_config
+    from weaviate_tpu_torch.inverted.bm25_device import DeviceBM25
+    from weaviate_tpu_torch.storage.bitmap import Bitmap
+
+    rng = np.random.default_rng(seed + 9)
+    t0 = time.perf_counter()
+    vocab = np.array([f"w{i}" for i in range(G_VOCAB)])
+    words = vocab[zipf_words(rng, G_N * G_WORDS)].reshape(G_N, G_WORDS)
+    bodies = [" ".join(row) for row in words]
+    lens = rng.integers(2, 9, G_Q)
+    qwords = vocab[zipf_words(rng, int(lens.sum()))]
+    cuts = np.cumsum(lens)[:-1]
+    qtexts = [" ".join(p) for p in np.split(qwords, cuts)]
+    del words
+    log(f"G data: {G_N} documents of {G_WORDS} words (Zipf s = 1 over {G_VOCAB}), {G_Q} "
+        f"queries of 2-8 words in {time.perf_counter() - t0:.1f} s")
+    cd = ClassDef(name="Passage", properties=[Property(name="body", data_type=["text"])],
+                  vector_index_type="noop")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_g_")
+    shard = None
+    try:
+        shard = Shard("shard0", tmp, cd, parse_and_validate_config("noop", {}),
+                      invert_cfg={"bm25": {"device": True}}, store_opts=D_STORE_OPTS,
+                      device=dev)
+        engine = shard.bm25_device
+        if not isinstance(engine, DeviceBM25) or engine.device != dev:
+            raise AssertionError(f"G: the Shard's engine is {engine!r}")
+        t0 = time.perf_counter()
+        for s in range(0, G_N, G_IMPORT):
+            objs = [StorObj(class_name="Passage", uuid=str(uuidlib.UUID(int=i + 1)),
+                            properties={"body": bodies[i]}) for i in range(s, min(s + G_IMPORT,
+                                                                                  G_N))]
+            errs = shard.put_batch(objs)
+            if any(e is not None for e in errs):
+                raise AssertionError(f"G import: {next(e for e in errs if e is not None)!r}")
+        shard.flush()
+        shard.store.flush_memtables()
+        import_s = time.perf_counter() - t0
+        log(f"G import: {G_N} documents through Shard.put_batch in batches of {G_IMPORT}, "
+            f"flushed: {import_s:.1f} s, {G_N / import_s:.0f} documents/s")
+
+        # the main path: one keyword object_search at a time, then the batch lane
+        phase("G main path")
+        host = shard.bm25
+        n_docs = max(host._doc_count(), 1)
+        props = host._searchable_props(None)
+
+        def truth(q, allow=None):
+            units = host._build_units(q, props, n_docs)
+            ids, scores = host._rank(units, 1 << 30, allow, prune=False)
+            return {int(d): float(v) for d, v in zip(ids, scores)}
+
+        t_dev, dev_hits = [], []
+        for q in qtexts:
+            t1 = time.perf_counter()
+            res = shard.object_search(K, keyword_ranking={"query": q})
+            t_dev.append(time.perf_counter() - t1)
+            dev_hits.append([(int(r.obj.doc_id), float(r.score), None) for r in res])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        batch = shard.keyword_search_batch(qtexts, K)
+        t_batch = [time.perf_counter() - t1]
+        for _ in range(G_BATCH_REPS - 1):
+            t1 = time.perf_counter()
+            shard.keyword_search_batch(qtexts, K)
+            t_batch.append(time.perf_counter() - t1)
+        shard.bm25_device = None  # the host MaxScore engine on the same shard
+        t_host, host_hits = [], []
+        for q in qtexts:
+            t1 = time.perf_counter()
+            res = shard.object_search(K, keyword_ranking={"query": q})
+            t_host.append(time.perf_counter() - t1)
+            host_hits.append([float(r.score) for r in res])
+        shard.bm25_device = engine
+        for i, q in enumerate(qtexts):
+            tr = truth(q)
+            bm25_agree(f"G query {i}", dev_hits[i], host_hits[i], tr)
+            bm25_agree(f"G batch query {i}", [(int(r.obj.doc_id), float(r.score), None)
+                                              for r in batch[i]], host_hits[i], tr)
+        log(f"G {G_Q} keyword queries (k={K}): the device engine's object_search, its batch lane "
+            f"and the host engine agree (tie-aware, rtol 1e-5); non-empty answers "
+            f"{sum(1 for h in dev_hits if h)} of {G_Q}")
+
+        # allowLists of ~10% and ~60% of the rows, through the engine
+        for share in (0.1, 0.6):
+            allow = Bitmap(np.flatnonzero(rng.random(G_N) < share).astype(np.uint64))
+            for i, q in enumerate(qtexts[:G_ALLOW_Q]):
+                got = engine.search(q, K, allow_list=allow)
+                want = [s for _, s, _ in host.search(q, K, allow_list=allow)]
+                bm25_agree(f"G allowList {share:.0%} query {i}", got, want, truth(q, allow))
+                if any(not allow.contains(d) for d, _, _ in got):
+                    raise AssertionError(f"G allowList {share:.0%}: a filtered-out id came back")
+            log(f"G allowList of {len(allow)} docs ({share:.0%}): {G_ALLOW_Q} queries agree "
+                "with the host engine; every id in the list")
+        busy = profile_sync_batch(lambda qs: shard.keyword_search_batch(qs, K), qtexts, card,
+                                  f"G batch lane ({G_Q} queries)")
+        st = engine.last_batch_stats
+        log(f"[{card}] G end to end, {G_N} documents: import {G_N / import_s:.0f} documents/s; "
+            f"one keyword object_search p50 {p50_ms(t_dev):.2f} ms on the device engine, "
+            f"{p50_ms(t_host):.2f} ms on the host engine; batch lane of {G_Q} p50 "
+            f"{p50_ms(t_batch):.1f} ms ({st['u']} units, {st['slices']} slices, n_pad "
+            f"{st['n_pad']}); busy {'not measured' if busy is None else f'{busy[0]:.1%}'}")
+    finally:
+        if shard is not None:
+            shard.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 # -- the busy-share comparison -------------------------------------------------------
 
 def busy_share(card, seed) -> dict:
@@ -1867,6 +2388,9 @@ def profiler_phase(dev, card, seed) -> list[dict]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--only", metavar="LIST",
+                    help="run only these workloads (a comma-separated subset of "
+                         "A,B,A16,C,D,E,F,G) and print no result lines")
     ap.add_argument("--busy-share", metavar="CHECKOUT",
                     help="run only A's and B1's sync p50 and busy share (BUSY_REPS "
                          "profiled batches each), with weaviate_tpu_torch imported from CHECKOUT, a "
@@ -1912,32 +2436,26 @@ def main() -> int:
               flush=True)
         return 0
 
-    # 3-5. the workloads
-    t0 = time.perf_counter()
-    phase("workload A")
-    k1_f32 = headline(dev, card, args.seed)
-    log(f"workload A: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase("workload B")
-    pq_rows = pq_workload(dev, card, args.seed)
-    log(f"workload B: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase("workload A-bf16")
-    a16 = headline_bf16(dev, card, args.seed)
-    log(f"workload A-bf16: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase("workload C")
-    layout_rows = profiler_phase(dev, card, args.seed)
-    log(f"workload C: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase("workload D")
-    d_row = shard_workload(dev, card, args.seed)
-    log(f"workload D: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase("workload E")
-    e_row = app_workload(dev, card, args.seed)
-    log(f"workload E: {time.perf_counter() - t0:.1f} s; "
-        f"total {time.perf_counter() - t_start:.1f} s")
+    # 3-6. the workloads
+    runs = (("A", headline), ("B", pq_workload), ("A16", headline_bf16), ("C", profiler_phase),
+            ("D", shard_workload), ("E", app_workload), ("F", ivf_workload),
+            ("G", bm25_workload))
+    wanted = set(args.only.split(",")) if args.only else {key for key, _ in runs}
+    res = {}
+    for key, fn in runs:
+        if key not in wanted:
+            continue
+        t0 = time.perf_counter()
+        phase(f"workload {key}")
+        res[key] = fn(dev, card, args.seed)
+        log(f"workload {key}: {time.perf_counter() - t0:.1f} s; "
+            f"total {time.perf_counter() - t_start:.1f} s")
+    if args.only:
+        faulthandler.cancel_dump_traceback_later()
+        log(f"workloads {args.only} done")
+        return 0
+    k1_f32, pq_rows, a16, layout_rows, d_row, e_row = (
+        res[key] for key in ("A", "B", "A16", "C", "D", "E"))
 
     # 6. result lines: K1's launches include D's and E's (the Shard's and
     # the App's main paths), K1-bf16's the bf16-store run's

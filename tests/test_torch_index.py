@@ -19,6 +19,7 @@ from weaviate_tpu.index import new_vector_index as jax_new_index
 from weaviate_tpu.storage.bitmap import Bitmap as JaxBitmap
 from weaviate_tpu_torch.entities import vectorindex as tvi
 from weaviate_tpu_torch.index import new_vector_index as torch_new_index
+from weaviate_tpu_torch.index import gpu
 from weaviate_tpu_torch.index.gpu import GpuVectorIndex
 from weaviate_tpu_torch.ops import gmin_scan
 from weaviate_tpu_torch.state import state_from_arrays
@@ -238,13 +239,22 @@ def test_unported_types_and_tiers_raise(tmp_path, monkeypatch):
     mesh = tvi.HnswUserConfig(index_type="hnsw_tpu_mesh")
     with pytest.raises(ValueError, match="item 10"):
         torch_new_index(mesh, str(tmp_path / "mesh"), device="cpu")
-    idx = GpuVectorIndex(tvi.parse_and_validate_config("hnsw_tpu", {}), str(tmp_path / "ivf"),
-                         device="cpu", persist=False)
-    idx.add_batch(np.arange(64), np.ones((64, D), np.float32))
+    # the IVF plane (item 9) is served now: IVF_ENABLED in the environment
+    # trains a layout at the first write past IVF_MIN_N and an IVF search answers
     monkeypatch.setenv("IVF_ENABLED", "true")
     monkeypatch.setenv("IVF_MIN_N", "10")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        idx.search_by_vectors(np.ones((1, D), np.float32), 1)
+    gpu.set_ivf_config(None)  # re-read the environment
+    try:
+        idx = GpuVectorIndex(tvi.parse_and_validate_config("hnsw_tpu", {}),
+                             str(tmp_path / "ivf"), device="cpu", persist=False)
+        vecs = np.random.default_rng(4).standard_normal((300, D)).astype(np.float32)
+        idx.add_batch(np.arange(300), vecs)
+        assert idx._ivf_buckets is not None
+        ids, dists = idx.search_by_vectors(vecs[:2], 1)
+        assert ids[:, 0].tolist() == [0, 1] and idx.ivf_stats()["dispatches"] == 1
+    finally:
+        monkeypatch.delenv("IVF_ENABLED")
+        gpu.set_ivf_config(None)
 
 
 def test_concurrent_reads_and_writes_stress(tmp_path):

@@ -118,17 +118,52 @@ def test_serving_chain_imports_no_jax_or_reference_module():
 
 
 @pytest.mark.parametrize("env, item", [
-    ({"IVF_ENABLED": "true"}, "item 9"),
     ({"TPU_DEVICE_MESH_SHARDS": "2"}, "item 10"),
     ({"ENABLE_MODULES": "text2vec-local"}, "item 14"),
     ({"CLUSTER_HOSTNAME": "node-1"}, "item 15"),
-], ids=["ivf", "mesh", "modules", "cluster"])
+], ids=["mesh", "modules", "cluster"])
 def test_app_refuses_what_the_port_does_not_serve_yet(tmp_path, env, item):
     from weaviate_tpu_torch.config import load_config
     from weaviate_tpu_torch.server import App
 
     with pytest.raises(ValueError, match=item):
         App(config=load_config(env), data_path=str(tmp_path), device="cpu")
+
+
+def test_app_with_ivf_enabled_serves_probed_answers(tmp_path):
+    """IVF_ENABLED is served: the App installs its IVF settings, the class's
+    index trains a layout at import and nearVector answers through the
+    probe; shutdown reverts the setting."""
+    import uuid as uuidlib
+
+    import numpy as np
+
+    from weaviate_tpu_torch.config import load_config
+    from weaviate_tpu_torch.entities.storobj import StorObj
+    from weaviate_tpu_torch.index import gpu
+    from weaviate_tpu_torch.server import App
+    from weaviate_tpu_torch.usecases.traverser import GetParams
+
+    env = {"IVF_ENABLED": "true", "IVF_MIN_N": "256", "IVF_NLIST": "8", "IVF_TOP_P": "8"}
+    app = App(config=load_config(env), data_path=str(tmp_path), device="cpu")
+    try:
+        assert gpu.ivf_settings().nlist == 8
+        app.schema.add_class({"class": "Iv", "vectorIndexType": "hnsw_tpu",
+                              "vectorIndexConfig": {"distance": "l2-squared"},
+                              "properties": [{"name": "tag", "dataType": ["text"]}]})
+        vecs = np.random.default_rng(2).standard_normal((600, 8)).astype(np.float32)
+        idx = app.db.get_index("Iv")
+        idx.put_batch([StorObj(class_name="Iv", uuid=str(uuidlib.UUID(int=i + 1)),
+                               properties={"tag": "t"}, vector=vecs[i]) for i in range(600)])
+        shard = next(iter(idx.shards.values()))
+        res = app.traverser.get_class(GetParams(
+            class_name="Iv", near_vector={"vector": vecs[5].tolist()}, limit=3))
+        assert res[0].obj.uuid == str(uuidlib.UUID(int=6)) and len(res) == 3
+        assert shard.vector_index.ivf_stats()["dispatches"] >= 1
+        assert shard.vector_index.health()["ivf"]["trained"]
+    finally:
+        app.shutdown()
+    assert gpu._ivf_override is None
 
 
 def test_app_needs_a_card_or_an_explicit_cpu(tmp_path, monkeypatch):

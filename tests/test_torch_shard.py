@@ -325,22 +325,49 @@ def test_raw_lane_matches_the_hydrated_lane(tmp_path):
         _close(jshard, tshard)
 
 
+def _assert_tie_aware(dev_hits, host_all, limit):
+    """Device BM25 hits against the host engine's full ranking: the same
+    scores rank by rank (rtol 1e-5: f32 device sums, f64 host), and every
+    device id is a genuine scorer at its level (BM25 ties by nature)."""
+    host = {d: sc for d, sc, _ in host_all}
+    want = [sc for _, sc, _ in host_all[:limit]]
+    assert len(dev_hits) == len(want)
+    np.testing.assert_allclose([sc for _, sc, _ in dev_hits], want, rtol=1e-5)
+    for d, sc, _ in dev_hits:
+        np.testing.assert_allclose(host[d], sc, rtol=1e-5)
+
+
 def test_debug_health_and_device_bm25_request(tmp_path, monkeypatch):
     """debug_health has the JAX Shard's keys; asking for device BM25 (by
-    config or environment) raises, naming the ROADMAP item, since the
-    port has no such engine yet."""
+    config or environment) serves the keyword lanes through the device
+    engine, whose answers agree with the host engine's."""
+    from weaviate_tpu_torch.inverted.bm25_device import DeviceBM25
+
     jshard, tshard, _, _ = _pair(tmp_path)
+    vecs, bucket, words, _ = _data()
     try:
         hj, ht = jshard.debug_health(), tshard.debug_health()
         assert set(ht) == set(hj) and set(ht["allow_cache"]) == set(hj["allow_cache"])
         assert ht["objects"] == hj["objects"] == N
         assert ht["vector_index"]["live"] == hj["vector_index"]["live"] == N
-        with pytest.raises(ValueError, match="item 11"):
-            Shard("s1", str(tmp_path / "bm25"), tshard.class_def, tshard.vector_index.config,
-                  invert_cfg={"bm25": {"device": True}}, device="cpu")
+        dev = Shard("s1", str(tmp_path / "bm25"), tshard.class_def, tshard.vector_index.config,
+                    invert_cfg={"bm25": {"device": True}}, device="cpu")
         monkeypatch.setenv("WEAVIATE_TPU_BM25_DEVICE", "1")
-        with pytest.raises(ValueError, match="item 11"):
-            _open(PORT, tmp_path / "bm25env")
+        env = _open(PORT, tmp_path / "bm25env")
+        for shard in (dev, env):
+            assert isinstance(shard.bm25_device, DeviceBM25)
+            shard.put_batch(_objs(PORT, vecs, bucket, words, range(600)))
+            queries = ["alpha bravo", "doc7 echo", "golf"]
+            for qtext in queries:
+                hits = shard.bm25_device.search(qtext, 8)
+                _assert_tie_aware(hits, shard.bm25.search(qtext, 600), 8)
+                got = shard.object_search(8, keyword_ranking={"query": qtext})
+                assert [r.score for r in got] == [sc for _, sc, _ in hits]
+            batch = shard.keyword_search_batch(queries, 8)
+            for qtext, rows in zip(queries, batch):
+                assert [r.score for r in rows] == [r.score for r in shard.object_search(
+                    8, keyword_ranking={"query": qtext})]
+        _close(dev, env)
     finally:
         _close(jshard, tshard)
 

@@ -168,6 +168,7 @@ class Shard:
         self.name = name
         self.path = path
         self.class_def = class_def
+        self.device = device  # the index's and the device BM25 engine's
         self.metrics = metrics
         os.makedirs(path, exist_ok=True)
         self.store = Store(os.path.join(path, "lsm"), **(store_opts or {}))
@@ -242,15 +243,16 @@ class Shard:
 
     def _maybe_device_bm25(self):
         """Device BM25 engine when opted in (invertedIndexConfig.bm25.device
-        or WEAVIATE_TPU_BM25_DEVICE=1); None keeps the host MaxScore path.
-        The port has no device BM25 engine yet: asking for one raises."""
+        or WEAVIATE_TPU_BM25_DEVICE=1), on the shard's device; None keeps
+        the host MaxScore path."""
         bm = (self.invert_cfg or {}).get("bm25") or {}
         env = os.environ.get("WEAVIATE_TPU_BM25_DEVICE", "").strip().lower()
         env_on = env not in ("", "0", "false", "off", "no")
         if not (bm.get("device") or env_on):
             return None
-        raise ValueError("device BM25 (inverted/bm25_device.py) is not ported yet: "
-                         "ROADMAP queue 1 item 11")
+        from weaviate_tpu_torch.inverted.bm25_device import DeviceBM25
+
+        return DeviceBM25(self.bm25, device=self.device)
 
     def update_vector_config(self, cfg) -> None:
         self.vector_index.update_user_config(cfg)

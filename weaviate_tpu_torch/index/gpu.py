@@ -50,6 +50,16 @@ The codebook persists as `pq.npz` (and `pq4.npz`) in the reference's
 layout; a restart replays `vector.log` and re-encodes against it, so a
 compressed shard restarts in either package.
 
+The IVF scan plane (`IVF_ENABLED`, or `set_ivf_config`; ops/ivf.py).
+Once min_n rows exist the write path trains a clustered layout on the
+host (k-means centroids, balanced padded partition buckets, optionally
+a PCA prefilter basis); later rows are assigned as they land and fold
+into the buckets before the next publish, and growth by retrain_growth,
+or a compaction, retrains. A dispatch past the gather tier then probes
+the top_p nearest partitions and scores only their rows, on every tier
+(exact, bf16 store, PQ rescore, PQ codes, the 4-bit funnel), fused or
+staged (`_dispatch_ivf`).
+
 Writes and snapshots. The JAX package replaces every device array on
 every write. Here two kinds of write stay in place, because no published
 snapshot can see what they change:
@@ -83,6 +93,7 @@ traces and the quality auditor (`pop_read_lock_wait`,
 from __future__ import annotations
 
 import logging
+import math
 import os
 import struct
 import threading
@@ -94,14 +105,15 @@ import torch
 
 from weaviate_tpu_torch.compress.pq import (ProductQuantizer, build_lut, lut_scan_block,
                                             pack_codes4)
-from weaviate_tpu_torch.config.config import (PQ4_FUNNEL_C_BUCKETS,
+from weaviate_tpu_torch.config.config import (IVF_TOP_P_BUCKETS, PQ4_FUNNEL_C_BUCKETS,
                                               PQ4_FUNNEL_RESCORE_BUCKETS, RESCORE_R_BUCKETS,
-                                              _bool)
+                                              IvfConfig, _bool, ivf_from_env)
 from weaviate_tpu_torch.device import resolve_device
 from weaviate_tpu_torch.entities import vectorindex as vi
 from weaviate_tpu_torch.index.interface import AllowList, VectorIndex
 from weaviate_tpu_torch.monitoring import costmodel, incidents, memory, quality, tracing
 from weaviate_tpu_torch.ops import gmin_scan, pq4, pq_gmin
+from weaviate_tpu_torch.ops import ivf as ivf_ops
 from weaviate_tpu_torch.ops.distances import DISTANCE_FNS
 from weaviate_tpu_torch.ops.topk import (bitmap_to_mask, merge_top_k, pack_topk,
                                          rescore_distances, smallest_k,
@@ -135,8 +147,6 @@ _B_BUCKETS = (1, 4, 16, 64, 256, 1024)
 _SCAN_CHUNK = 131072
 # rows of the code matrix scored per LUT-scan step
 _PQ_SCAN_CHUNK = 32768
-
-_NO_IVF = "the IVF scan plane is not ported yet: ROADMAP queue 1 item 9"
 
 # -- fused-dispatch toggle ----------------------------------------------------
 # On (the default), every dispatch translates slots to doc ids on the card
@@ -181,10 +191,72 @@ def fused_dispatch_enabled() -> bool:
     return _fused_env
 
 
-def _ivf_requested(n: int) -> bool:
-    """True when IVF_ENABLED asks for the IVF plane and the shard is large
-    enough that the JAX package would route this dispatch to it."""
-    return _bool(os.environ, "IVF_ENABLED") and n >= int(os.environ.get("IVF_MIN_N", "") or 20000)
+# -- IVF scan-plane toggle ----------------------------------------------------
+# The fused toggle's shape: the App applies Config.ivf here at init (token-
+# scoped, so a torn-down App reverts only its own setting); bare-library
+# indexes read the IVF_* environment through config's own parser. Disabled
+# (the default), ivf_settings() is None and every IVF hook (write-path
+# training, dispatch planning, health) is one comparison.
+_ivf_override: Optional[IvfConfig] = None
+_ivf_env: Optional[IvfConfig] = None
+_ivf_token: Optional[object] = None
+
+
+def set_ivf_config(cfg: Optional[IvfConfig]) -> Optional[object]:
+    """Install a process-wide IvfConfig override. None reverts to the IVF_*
+    environment default, re-read fresh. Returns a token for
+    unset_ivf_config."""
+    global _ivf_override, _ivf_token, _ivf_env
+    _ivf_override = cfg
+    _ivf_token = object() if cfg is not None else None
+    if cfg is None:
+        _ivf_env = None
+    return _ivf_token
+
+
+def unset_ivf_config(token: Optional[object]) -> None:
+    """Revert set_ivf_config's override iff `token` is still current."""
+    global _ivf_override, _ivf_token, _ivf_env
+    if token is not None and token is _ivf_token:
+        _ivf_override = None
+        _ivf_token = None
+        _ivf_env = None
+
+
+def ivf_settings() -> Optional[IvfConfig]:
+    """The active IVF settings, or None when the plane is disabled."""
+    global _ivf_env
+    s = _ivf_override
+    if s is not None:
+        return s if s.enabled else None
+    if _ivf_env is None:
+        _ivf_env = ivf_from_env()
+    return _ivf_env if _ivf_env.enabled else None
+
+
+def _snap_top_p(v: int) -> int:
+    """Largest IVF_TOP_P_BUCKETS entry <= v (min the first bucket); past
+    the ladder's top, pow2 steps (one value per octave)."""
+    top = IVF_TOP_P_BUCKETS[-1]
+    if v > top:
+        p = top
+        while p * 2 <= v:
+            p *= 2
+        return int(p)
+    best = IVF_TOP_P_BUCKETS[0]
+    for b in IVF_TOP_P_BUCKETS:
+        if b <= v:
+            best = b
+    return int(best)
+
+
+def _bucket_rows(n: int) -> int:
+    """n snapped up to a power of two, min 128 (the reference's row
+    buckets; the IVF prefilter's survivor count)."""
+    b = 128
+    while b < n:
+        b *= 2
+    return b
 
 
 def _bucket_b(b: int) -> int:
@@ -836,7 +908,8 @@ class IndexSnapshot:
                  "tombs", "slot_to_doc", "slot_to_doc_dev", "host_tombs",
                  "allow_token", "store_gen", "compressed", "pq", "codes",
                  "recon_norms", "rescore_dev", "rescore_sq_norms", "host_vecs",
-                 "pq4", "codes4", "recon_norms4")
+                 "pq4", "codes4", "recon_norms4", "ivf_centroids", "ivf_buckets",
+                 "ivf_pca_proj", "ivf_pca_rows", "ivf_meta")
 
     def __init__(self, gen: int, idx: "GpuVectorIndex"):
         self.gen = gen
@@ -862,6 +935,14 @@ class IndexSnapshot:
         self.pq4 = idx._pq4
         self.codes4 = idx._codes4
         self.recon_norms4 = idx._recon_norms4
+        # the IVF slabs: a recluster or a bucket fold replaces them whole,
+        # so a dispatch on this snapshot answers from ITS layout (the PCA
+        # rows change in place only at slots >= n, as the store does)
+        self.ivf_centroids = idx._ivf_centroids
+        self.ivf_buckets = idx._ivf_buckets
+        self.ivf_pca_proj = idx._ivf_pca_proj
+        self.ivf_pca_rows = idx._ivf_pca_rows
+        self.ivf_meta = idx._ivf_meta  # (nlist, cap_p, recluster gen), host ints
 
 
 class GpuVectorIndex(VectorIndex):
@@ -966,6 +1047,31 @@ class GpuVectorIndex(VectorIndex):
         self._pq_path = os.path.join(shard_path, "pq.npz")
         self._pq4_path = os.path.join(shard_path, "pq4.npz")
         self._restoring = False
+        # -- IVF scan plane (ops/ivf.py): device slabs, None until the write
+        # path trains a layout: centroids [nlist, D] f32, padded buckets
+        # [nlist, cap_p] int32 (-1 padding), optional PCA projection [D, dp]
+        # and per-slot low-dim rows [capacity, dp]
+        self._ivf_centroids: Optional[torch.Tensor] = None
+        self._ivf_buckets: Optional[torch.Tensor] = None
+        self._ivf_pca_proj: Optional[torch.Tensor] = None
+        self._ivf_pca_rows: Optional[torch.Tensor] = None
+        # host twins for write-path assignment, the per-slot partition (-1
+        # unassigned), per-partition fills and the layout metadata
+        self._ivf_centroids_host: Optional[np.ndarray] = None
+        self._ivf_pca_host: Optional[np.ndarray] = None
+        self._ivf_assign = np.zeros(0, dtype=np.int32)
+        self._ivf_fills: Optional[np.ndarray] = None
+        self._ivf_meta: Optional[tuple[int, int, int]] = None
+        self._ivf_cap_p: Optional[int] = None
+        # written (slots, partitions) runs awaiting the incremental bucket
+        # fold at the next publish
+        self._ivf_pending_slots: list[tuple[np.ndarray, np.ndarray]] = []
+        self._ivf_trained_n = 0
+        self._ivf_gen = 0            # recluster generation
+        self._ivf_dirty = False      # buckets stale vs assignments
+        # probe accounting (health, probed_fraction), under a leaf lock
+        self._ivf_lock = sanitizers.register_lock(threading.Lock(), "index.tpu.ivf")
+        self._ivf_stats = {"dispatches": 0, "probed_rows": 0, "base_rows": 0}
         # host-memory provider (monitoring/memory.py): the slot/tombstone
         # mirrors, PQ host rows, staged rows, the breaker's fallback cache
         # and the staging pool become /debug/memory host components
@@ -1047,6 +1153,11 @@ class GpuVectorIndex(VectorIndex):
             self._sq_norms = _grow(self._sq_norms, cap, 0.0)
         self._tombs = _grow(self._tombs, cap, False)
         self._s2d_dev = _grow(self._s2d_dev, cap, -1)
+        self._ivf_pca_rows = _grow(self._ivf_pca_rows, cap, 0.0)
+        if self._ivf_assign.size:
+            ia = np.full(cap, -1, np.int32)
+            ia[: self.capacity] = self._ivf_assign[: self.capacity]
+            self._ivf_assign = ia
         self._store_gen += 1
         s2d = np.full(cap, -1, dtype=np.int64)
         s2d[: self.capacity] = self._slot_to_doc
@@ -1097,6 +1208,7 @@ class GpuVectorIndex(VectorIndex):
         if self.compressed:
             self._host_vecs[start: start + count] = rows
         self._store_gen += 1
+        self._ivf_on_rows_written(rows, start)
         self._stamp_memory()
 
     def _stage_add(self, doc_id: int, vector: np.ndarray, log: bool = True) -> None:
@@ -1237,6 +1349,7 @@ class GpuVectorIndex(VectorIndex):
             # the top of every search and must stay free on the hot path
             self._update_index_gauges()
         self._maybe_declared_compress()
+        self._maybe_ivf_train()
         if flushed or self._published_gen != self._staged_gen:
             # publication is the LAST step: readers grabbing the new
             # reference must see every staged mutation already applied
@@ -1271,11 +1384,203 @@ class GpuVectorIndex(VectorIndex):
                 _log.warning("declared pq config is invalid (%s); auto-disabling "
                              "compression for this index", e)
 
+    # -- IVF scan plane: write half (ops/ivf.py host half) -------------------
+    # Training is declarative, like the declared compress: once IVF is on
+    # and min_n rows exist, the write path fits k-means centroids and
+    # buckets every row; later row runs are assigned to their nearest
+    # centroid as they land, and the buckets fold them in before the next
+    # publish. All of it is one comparison while IVF is off.
+
+    def _ivf_on_rows_written(self, rows: np.ndarray, start: int) -> None:
+        """Assign a written row run to the trained layout and write its PCA
+        rows (in place: slots >= n, as the store's rows)."""
+        cent = self._ivf_centroids_host
+        if cent is None:
+            return
+        count = rows.shape[0]
+        assign = ivf_ops.assign_partitions(rows, cent)
+        if self._ivf_assign.shape[0] < self.capacity:
+            ia = np.full(self.capacity, -1, np.int32)
+            ia[: self._ivf_assign.shape[0]] = self._ivf_assign
+            self._ivf_assign = ia
+        self._ivf_assign[start: start + count] = assign
+        if self._ivf_pca_host is not None:
+            self._write_ivf_pca(rows @ self._ivf_pca_host, start)
+        self._ivf_pending_slots.append(
+            (np.arange(start, start + count, dtype=np.int32), assign))
+        self._ivf_dirty = True
+
+    def _write_ivf_pca(self, block: np.ndarray, start: int) -> None:
+        """Land a [count, dp] PCA row run at slots [start, start+count)."""
+        if self._ivf_pca_rows is None:
+            return
+        self._ivf_pca_rows[start: start + block.shape[0]] = torch.from_numpy(
+            np.ascontiguousarray(block, dtype=np.float32)).to(self.device)
+
+    def _ivf_nlist(self, s: IvfConfig, n: int) -> int:
+        """Partition count for an n-row layout: the configured value
+        (at most n/8), or auto: ~256 rows per partition snapped up to a
+        power of two, in [16, 4096] and at most n/32."""
+        if s.nlist > 0:
+            return max(1, min(s.nlist, max(n // 8, 1)))
+        target = 2 ** int(math.ceil(math.log2(max(n / 256.0, 16.0))))
+        return int(max(16, min(target, 4096, max(n // 32, 16))))
+
+    def _ivf_rows_for_training(self) -> np.ndarray:
+        """The occupied rows as host f32 for the k-means and PCA fits: the
+        host copy under PQ, else one bulk copy of the store (a bf16 store
+        widened to f32)."""
+        if self.compressed and self._host_vecs is not None:
+            return self._host_vecs[: self.n]
+        return self._store[: self.n].cpu().float().numpy()
+
+    def _maybe_ivf_train(self) -> None:
+        """Train once min_n rows exist (at least 256), retrain once n
+        outgrows the trained layout by retrain_growth; never during a
+        restore, never for the non-matmul metrics."""
+        s = ivf_settings()
+        if s is None or self._restoring or self.dim is None:
+            return
+        if self.metric not in ivf_ops.MATMUL_METRICS:
+            return
+        if self.n < max(s.min_n, 256):
+            return
+        if self._ivf_centroids is not None and \
+                self.n < self._ivf_trained_n * (1.0 + s.retrain_growth):
+            return
+        self._ivf_train_locked(s)
+
+    def _ivf_train_locked(self, s: IvfConfig) -> None:
+        """Train (or retrain) the layout under the write lock: k-means on the
+        host, balanced assignment of every row (the padded width pinned by
+        the mean fill with 25% slack), the optional PCA basis and low-dim
+        rows, the buckets; every IVF tensor is new, so published snapshots
+        keep their layout."""
+        t0 = time.perf_counter()
+        n = self.n
+        rows = self._ivf_rows_for_training()
+        nlist = self._ivf_nlist(s, n)
+        cent = ivf_ops.kmeans_fit(
+            rows, nlist, iters=s.train_iters, seed=self._ivf_gen,
+            sample=min(len(rows), max(s.train_sample, nlist * 16)))
+        if self.metric == vi.DISTANCE_COSINE:
+            nrm = np.linalg.norm(cent, axis=1, keepdims=True)
+            nrm[nrm == 0] = 1.0
+            cent = cent / nrm
+        cap_t = ivf_ops.bucket_capacity(np.array([int(1.25 * n / nlist) + 1]))
+        assign = np.full(self.capacity, -1, np.int32)
+        assign[:n] = ivf_ops.balanced_assign(rows, cent, cap_t)
+        self._ivf_cap_p = cap_t
+        self._ivf_centroids_host = cent
+        self._ivf_assign = assign
+        self._ivf_centroids = torch.from_numpy(np.ascontiguousarray(cent)).to(self.device)
+        dp = int(s.pca_dim)
+        if 0 < dp < self.dim:
+            psamp = min(len(rows), max(s.train_sample, 4096))
+            if psamp < len(rows):
+                pick = np.random.default_rng(self._ivf_gen).choice(
+                    len(rows), size=psamp, replace=False)
+                proj = ivf_ops.pca_fit(rows[pick], dp)
+            else:
+                proj = ivf_ops.pca_fit(rows, dp)
+            self._ivf_pca_host = proj
+            self._ivf_pca_proj = torch.from_numpy(proj).to(self.device)
+            pr = torch.zeros((self.capacity, dp), dtype=torch.float32, device=self.device)
+            pr[:n] = torch.from_numpy(np.ascontiguousarray(rows @ proj)).to(self.device)
+            self._ivf_pca_rows = pr
+        else:
+            self._ivf_pca_host = self._ivf_pca_proj = self._ivf_pca_rows = None
+        self._ivf_trained_n = n
+        self._ivf_gen += 1
+        self._ivf_rebuild_buckets()
+        self._staged_gen += 1
+        self._mark_staged()
+        self._stamp_memory()
+        ms = (time.perf_counter() - t0) * 1000.0
+        led = memory.get_ledger()
+        if led is not None:
+            led.note_write("ivf", "recluster", ms, rows=n)
+        incidents.emit("write_phase", scope="ivf_recluster", rows=n, nlist=nlist,
+                       ms=round(ms, 1))
+
+    def _ivf_apply_pending(self) -> None:
+        """Fold written slots into the buckets' free columns (a scatter into
+        a copy: a published snapshot may hold the old table); a bucket that
+        would overflow its padding, or no bucket table yet, rebuilds it."""
+        pend, self._ivf_pending_slots = self._ivf_pending_slots, []
+        if self._ivf_buckets is None or self._ivf_fills is None or not pend:
+            self._ivf_rebuild_buckets()
+            return
+        slots = np.concatenate([sl for sl, _ in pend])
+        parts = np.concatenate([pt for _, pt in pend])
+        nlist = self._ivf_fills.shape[0]
+        counts = np.bincount(parts, minlength=nlist)
+        if bool((self._ivf_fills + counts > self._ivf_cap_p).any()):
+            self._ivf_rebuild_buckets()
+            return
+        order = np.argsort(parts, kind="stable")
+        sp, ss = parts[order], slots[order]
+        starts = np.zeros(nlist + 1, np.int64)
+        np.cumsum(counts, out=starts[1:])
+        cols = np.arange(sp.size, dtype=np.int64) - starts[sp] + self._ivf_fills[sp]
+        buckets = self._ivf_buckets.clone()
+        dev = self.device
+        buckets[torch.from_numpy(sp.astype(np.int64)).to(dev),
+                torch.from_numpy(cols).to(dev)] = torch.from_numpy(ss).to(dev)
+        self._ivf_buckets = buckets
+        self._ivf_fills = self._ivf_fills + counts
+        self._ivf_dirty = False
+        self._stamp_memory()
+
+    def _ivf_rebuild_buckets(self) -> None:
+        """Rebuild the padded buckets from the host assignment (one bucket
+        sort, one upload), keeping the padded width while every bucket
+        fits."""
+        cent = self._ivf_centroids_host
+        if cent is None:
+            return
+        nlist = cent.shape[0]
+        buckets, fills = ivf_ops.build_buckets(self._ivf_assign, nlist, self._ivf_cap_p)
+        self._ivf_cap_p = int(buckets.shape[1])
+        self._ivf_fills = fills
+        self._ivf_buckets = torch.from_numpy(buckets).to(self.device)
+        self._ivf_meta = (nlist, self._ivf_cap_p, self._ivf_gen)
+        self._ivf_pending_slots = []
+        self._ivf_dirty = False
+        self._stamp_memory()
+
+    def _ivf_reset(self) -> None:
+        """Drop the whole IVF layout (compact's rebuild and drop())."""
+        self._ivf_centroids = self._ivf_buckets = None
+        self._ivf_pca_proj = self._ivf_pca_rows = None
+        self._ivf_centroids_host = self._ivf_pca_host = None
+        self._ivf_assign = np.zeros(0, dtype=np.int32)
+        self._ivf_fills = None
+        self._ivf_meta = None
+        self._ivf_cap_p = None
+        self._ivf_pending_slots = []
+        self._ivf_trained_n = 0
+        self._ivf_dirty = False
+
+    def ivf_stats(self) -> dict:
+        """Cumulative probe accounting: dispatches the IVF plane served, the
+        rows the probes read (top_p x cap_p, padding included) and the rows
+        a flat scan would have read, with their ratio."""
+        with self._ivf_lock:
+            st = dict(self._ivf_stats)
+        st["probed_fraction"] = (round(st["probed_rows"] / st["base_rows"], 4)
+                                 if st["base_rows"] else None)
+        return st
+
     # -- snapshot publication / lock-free reads ------------------------------
 
     def _publish_snapshot(self) -> None:
         """Publish the current device state as a new immutable snapshot
-        (one reference swap; callers hold self._lock)."""
+        (one reference swap; callers hold self._lock). Pending partition
+        assignments fold into the buckets first, so the buckets a snapshot
+        carries describe exactly its slot space."""
+        if self._ivf_dirty:
+            self._ivf_apply_pending()
         self._snap_gen += 1
         self._snap = IndexSnapshot(self._snap_gen, self)
         self._published_gen = self._staged_gen
@@ -1357,7 +1662,11 @@ class GpuVectorIndex(VectorIndex):
                           ("pq4_codes", self._codes4),
                           ("pq4_norms", self._recon_norms4),
                           ("rescore_store", self._rescore_dev),
-                          ("rescore_sq_norms", self._rescore_sq_norms)):
+                          ("rescore_sq_norms", self._rescore_sq_norms),
+                          ("ivf_centroids", self._ivf_centroids),
+                          ("ivf_buckets", self._ivf_buckets),
+                          ("ivf_pca_proj", self._ivf_pca_proj),
+                          ("ivf_pca_rows", self._ivf_pca_rows)):
             b = memory.array_bytes(arr)
             if b:
                 comps[name] = b
@@ -1396,9 +1705,11 @@ class GpuVectorIndex(VectorIndex):
         weaviate_tpu_torch.state.state_from_arrays) into this empty index
         and publish it. An uncompressed store installs in this index's
         store dtype (`storeDtype`). A compressed state installs its quantizers, codes,
-        bf16 copy and host rows. A persistent index rewrites its vector log
-        with the live rows (and saves the codebooks), so a restart restores
-        the same answers."""
+        bf16 copy and host rows. An IVF layout (centroids, buckets, PCA
+        slabs and meta) installs as trained, its host twins rebuilt from
+        the buckets, so the index probes the carried partitions. A
+        persistent index rewrites its vector log with the live rows (and
+        saves the codebooks); a restart retrains its IVF layout from them."""
         with self._lock:
             if self.n or self._pending or self._pending_tombs:
                 raise ValueError("load_state needs an empty index")
@@ -1441,6 +1752,9 @@ class GpuVectorIndex(VectorIndex):
             self.live = len(self._doc_to_slot)
             self._store_gen += 1
             self._allow_token = object()
+            self._ivf_reset()
+            if state.ivf_centroids is not None:
+                self._install_ivf(state)
             if self._log is not None:
                 if self.compressed:
                     rows = self._host_vecs[live]
@@ -1450,6 +1764,33 @@ class GpuVectorIndex(VectorIndex):
                 self._log.rewrite(self._slot_to_doc[live], rows)
             self._staged_gen += 1
             self._publish_snapshot()
+
+    def _install_ivf(self, state) -> None:
+        """load_state's IVF half: the carried slabs on this device, and the
+        host twins (centroids, per-slot assignment, fills) the write path
+        needs, rebuilt from the buckets."""
+        dev = self.device
+        nlist, cap_p, gen = (int(v) for v in state.ivf_meta)
+        buckets = state.ivf_buckets.to(dev, torch.int32).contiguous()
+        if tuple(buckets.shape) != (nlist, cap_p):
+            raise ValueError(f"ivf buckets {tuple(buckets.shape)} != {(nlist, cap_p)}")
+        self._ivf_centroids = state.ivf_centroids.to(dev, torch.float32).contiguous()
+        self._ivf_centroids_host = self._ivf_centroids.cpu().numpy().copy()
+        self._ivf_buckets = buckets
+        host_b = buckets.cpu().numpy()
+        assign = np.full(self.capacity, -1, np.int32)
+        part, _col = np.nonzero(host_b >= 0)
+        assign[host_b[host_b >= 0]] = part
+        self._ivf_assign = assign
+        self._ivf_fills = (host_b >= 0).sum(1).astype(np.int64)
+        if state.ivf_pca_proj is not None:
+            self._ivf_pca_proj = state.ivf_pca_proj.to(dev, torch.float32).contiguous()
+            self._ivf_pca_host = self._ivf_pca_proj.cpu().numpy().copy()
+            self._ivf_pca_rows = state.ivf_pca_rows.to(dev, torch.float32).contiguous()
+        self._ivf_cap_p = cap_p
+        self._ivf_gen = gen
+        self._ivf_meta = (nlist, cap_p, gen)
+        self._ivf_trained_n = self.n
 
     # -- product quantization (compress.go analog) ---------------------------
 
@@ -1600,6 +1941,7 @@ class GpuVectorIndex(VectorIndex):
             # (the JAX package's add_batch publishes without them)
             self._apply_pending_tombs()
             self._maybe_declared_compress()
+            self._maybe_ivf_train()
             self._publish_snapshot()
             self._obs_index("add", "batch", t0, ops=count)
             led = memory.get_ledger()
@@ -1813,8 +2155,6 @@ class GpuVectorIndex(VectorIndex):
             b = 1 if np.asarray(vectors).ndim == 1 else len(vectors)
             empty = (np.zeros((b, 0), dtype=np.uint64), np.zeros((b, 0), dtype=np.float32))
             return lambda: empty
-        if _ivf_requested(snap.n):
-            raise NotImplementedError(_NO_IVF)
         if np.shape(vectors)[-1] != snap.dim:
             raise ValueError(f"dim mismatch: index has {snap.dim}, got {np.shape(vectors)[-1]}")
         faults.fire("index.gpu.dispatch")
@@ -1829,11 +2169,18 @@ class GpuVectorIndex(VectorIndex):
         # doc-id column; the staged one (s2d None) on the host
         s2d = snap.slot_to_doc_dev if fused_dispatch_enabled() else None
         tier = self.dispatch_tier(snap, allow_list)
+        # the partition-pruned plane: after the gather tier, before the
+        # flat tiers (large allowLists compose through the packed words)
+        ivf_plan = self._ivf_plan(snap, k_eff) if tier != costmodel.TIER_GATHER else None
         if t_enq0:
-            shape = self._dispatch_shape(snap, tier, allow_list, b, q.shape[0], k_eff)
+            shape = (self._ivf_shape(snap, ivf_plan, b, q.shape[0], k_eff)
+                     if ivf_plan is not None
+                     else self._dispatch_shape(snap, tier, allow_list, b, q.shape[0], k_eff))
             shape.backend = costmodel.detect_backend(self.device)
         if tier == costmodel.TIER_GATHER:
             fin = self._dispatch_small_allow(snap, q, b, k_eff, allow_list, s2d, shape)
+        elif ivf_plan is not None:
+            fin = self._dispatch_ivf(snap, q, b, k_eff, allow_list, ivf_plan, s2d, shape)
         elif snap.compressed:
             fin = self._dispatch_full_pq(snap, q, b, k_eff, allow_list, s2d, shape)
         else:
@@ -2161,6 +2508,130 @@ class GpuVectorIndex(VectorIndex):
         slot_idx = torch.where(pos >= 0, rows[torch.clamp(pos, min=0)], -1)
         return self._finalize(_pack(top, slot_idx, s2d), snap, s2d, b, shape=shape)
 
+    # -- IVF scan plane: dispatch half ---------------------------------------
+
+    def _ivf_plan(self, snap: IndexSnapshot, k: int) -> Optional[tuple[int, int]]:
+        """(top_p, prefilter_c) of an IVF dispatch on `snap`, or None for the
+        flat tiers: the plane off, no trained layout on the snapshot, or a
+        metric without the matmul forms. The probe count is the configured
+        one (auto: nlist/16) cut by the control plane's `ivf_top_p_cap`,
+        snapped to IVF_TOP_P_BUCKETS (or nlist itself), then widened until
+        the probed candidates cover 4k; pre_c (the PCA prefilter's
+        survivors, auto max(8k, min(2048, r/8))) snaps to a power of two
+        and is 0 unless it cuts."""
+        if snap.ivf_buckets is None:
+            return None
+        s = ivf_settings()
+        if s is None or self.metric not in ivf_ops.MATMUL_METRICS:
+            return None
+        nlist, cap_p, _gen = snap.ivf_meta
+        req = min(s.top_p if s.top_p > 0 else max(1, nlist // 16), nlist)
+        eff = max(1, min(req, controller.ivf_top_p_cap(req)))
+        if eff < nlist:
+            eff = min(_snap_top_p(eff), nlist)
+        while eff < nlist and eff * cap_p < 4 * k:
+            nxt = _snap_top_p(min(eff * 2, nlist))
+            eff = nlist if nxt <= eff else nxt
+        pre_c = 0
+        if snap.ivf_pca_proj is not None:
+            r = eff * cap_p
+            pc = s.prefilter_c if s.prefilter_c > 0 else max(8 * k, min(2048, r // 8))
+            pc = _bucket_rows(min(pc, r))
+            if pc < r:
+                pre_c = pc
+        return eff, pre_c
+
+    def _ivf_shape(self, snap: IndexSnapshot, plan: tuple[int, int], b: int, padded: int,
+                   k_eff: int):
+        """The probed-aware costmodel shape of an IVF dispatch: `n` is the
+        rows the device reads (top_p x cap_p candidates, padding included,
+        plus the nlist centroids), never the rows the probe skipped."""
+        top_p, _pre_c = plan
+        nlist, cap_p, _gen = snap.ivf_meta
+        probed = top_p * cap_p + nlist
+        rescore = snap.compressed and self.config.pq.rescore and snap.rescore_dev is not None
+        if not snap.compressed:
+            tier, bpr = costmodel.TIER_EXACT, snap.dim * snap.store.element_size()
+        elif snap.codes4 is not None and self.metric in vi.MATMUL_DISTANCES:
+            tier, bpr = costmodel.TIER_PQ_ADC4, snap.pq4.segments // 2
+        elif rescore:
+            tier, bpr = costmodel.TIER_PQ_RESCORE, 2 * snap.dim
+        else:
+            tier, bpr = costmodel.TIER_PQ_CODES, snap.pq.segments
+        return costmodel.DispatchShape(
+            tier, n=probed, dim=snap.dim, batch=b, batch_padded=padded, bytes_per_row=bpr,
+            k=int(k_eff),
+            extra={"ivf": True, "ivf_top_p": top_p, "ivf_nlist": nlist,
+                   "probed_fraction": round(min(probed / max(snap.n, 1), 1.0), 4)})
+
+    def _dispatch_ivf(self, snap: IndexSnapshot, q: torch.Tensor, b: int, k: int, allow_list,
+                      plan: tuple[int, int], s2d, shape=None):
+        """Partition-pruned search (ops/ivf.py, ops/pq4.search_ivf_pq4):
+        probe the centroids, score only the probed buckets, finish through
+        the same packed or fused epilogue as the flat tiers. Serves the
+        exact (f32 or bf16 store), PQ-rescore, PQ-codes and 4-bit funnel
+        tiers; tombstones and allowLists mask as in the flat scans. Query
+        blocks and probes per step come from ops/ivf.plan_steps."""
+        top_p, pre_c = plan
+        nlist, cap_p, _gen = snap.ivf_meta
+        use_allow = allow_list is not None
+        allow_words = self._allow_words(snap, allow_list) if use_allow else None
+        kk = min(max(k, 1), top_p * cap_p)
+        bq, dim, metric = q.shape[0], snap.dim, self.metric
+        rescore = snap.compressed and self.config.pq.rescore and snap.rescore_dev is not None
+        packed = None
+        if snap.codes4 is not None and snap.pq4 is not None and metric in vi.MATMUL_DISTANCES:
+            r_cand = top_p * cap_p
+            rg4, rc = self._funnel_budgets(kk, r_cand)
+            c1 = min(rg4 * gmin_scan.G, r_cand)
+            if rc >= kk and c1 >= rc:
+                qb, gp, steps2 = ivf_ops.plan_steps(bq, cap_p, dim, top_p, second=c1)
+                args = (snap.codes4, snap.codes, snap.recon_norms4, snap.recon_norms,
+                        snap.tombs, snap.n, q, allow_words, snap.pq4.codebook_dev(),
+                        snap.pq.codebook_dev(), snap.ivf_centroids, snap.ivf_buckets,
+                        snap.pq4.rotation_dev(), snap.rescore_dev)
+                statics = (kk, metric, use_allow, top_p, c1, rc, gp, steps2)
+                if s2d is not None:
+                    packed = pq4.search_ivf_pq4_fused(*args, s2d, *statics, qb=qb)
+                else:
+                    packed = pq4.search_ivf_pq4(*args, *statics, qb=qb)
+                with self._pq4_lock:
+                    st = self._pq4_stats
+                    st["dispatches"] += 1
+                    st["stage1_rows"] += r_cand
+                    st["stage2_survivors"] += c1
+                    st["stage3_survivors"] += rc
+            elif shape is not None and shape.tier == costmodel.TIER_PQ_ADC4:
+                # the budgets cannot cover this k over the probed set: the
+                # 8-bit IVF tier serves, labelled as such
+                shape.tier = costmodel.TIER_PQ_RESCORE if rescore else costmodel.TIER_PQ_CODES
+                shape.bytes_per_row = 2 * dim if rescore else snap.pq.segments
+        if packed is None:
+            qb, gp, steps2 = ivf_ops.plan_steps(bq, cap_p, dim, top_p, second=pre_c)
+            statics = (kk, metric, use_allow, top_p, pre_c, gp, steps2)
+            if not snap.compressed or rescore:
+                store = snap.rescore_dev if snap.compressed else snap.store
+                args = (store, snap.tombs, snap.n, q, allow_words, snap.ivf_centroids,
+                        snap.ivf_buckets, snap.ivf_pca_proj, snap.ivf_pca_rows)
+                if s2d is not None:
+                    packed = ivf_ops.search_ivf_dense_fused(*args, s2d, *statics, qb=qb)
+                else:
+                    packed = ivf_ops.search_ivf_dense(*args, *statics, qb=qb)
+            else:
+                args = (snap.codes, snap.recon_norms, snap.tombs, snap.n, q, allow_words,
+                        snap.pq.codebook_dev(), snap.ivf_centroids, snap.ivf_buckets,
+                        snap.ivf_pca_proj, snap.ivf_pca_rows, snap.pq.rotation_dev())
+                if s2d is not None:
+                    packed = ivf_ops.search_ivf_codes_fused(*args, s2d, *statics, qb=qb)
+                else:
+                    packed = ivf_ops.search_ivf_codes(*args, *statics, qb=qb)
+        with self._ivf_lock:
+            st = self._ivf_stats
+            st["dispatches"] += 1
+            st["probed_rows"] += top_p * cap_p
+            st["base_rows"] += int(snap.n)
+        return self._finalize(packed, snap, s2d, b, shape=shape)
+
     # -- host fallback plane (serving/robustness.py circuit breaker) ---------
 
     def host_rows(self, snap: IndexSnapshot) -> tuple[np.ndarray, np.ndarray]:
@@ -2282,6 +2753,41 @@ class GpuVectorIndex(VectorIndex):
         ids = np.where(np.isinf(top), -1, snap.slot_to_doc[idx])
         return ids.astype(np.uint64), top.astype(np.float32)
 
+    def _ivf_health(self) -> dict:
+        """health()["ivf"]: partition count, bucket fill and padding waste,
+        imbalance, the last recluster generation and the probe accounting
+        (lock-free racy reads, like the rest of health())."""
+        s = ivf_settings()
+        cent = self._ivf_centroids_host
+        out = {"enabled": s is not None, "trained": cent is not None}
+        if cent is None:
+            return out
+        nlist, cap_p, gen = self._ivf_meta or (cent.shape[0], self._ivf_cap_p or 0,
+                                               self._ivf_gen)
+        out.update({
+            "nlist": int(nlist),
+            "bucket_capacity": int(cap_p),
+            "trained_n": int(self._ivf_trained_n),
+            "last_recluster_gen": int(gen),
+            "pca_dim": int(self._ivf_pca_host.shape[1]) if self._ivf_pca_host is not None else 0,
+        })
+        fills = self._ivf_fills
+        if fills is not None and fills.size and cap_p:
+            total = int(fills.sum())
+            mean = total / max(int(nlist), 1)
+            out["buckets"] = {
+                "fill_min": int(fills.min()),
+                "fill_mean": round(mean, 1),
+                "fill_max": int(fills.max()),
+                "empty": int((fills == 0).sum()),
+                # the padded table's share of -1 rows the probes still read
+                "padding_waste": round(1.0 - total / (nlist * cap_p), 4),
+                "imbalance": round(float(fills.max()) / mean, 2) if mean > 0 else None,
+                "fill_histogram": np.histogram(fills, bins=8, range=(0, cap_p))[0].tolist(),
+            }
+        out["probes"] = self.ivf_stats()
+        return out
+
     def health(self) -> dict:
         """Per-index introspection for ``GET /debug/index``: live and
         tombstone accounting, snapshot and staged generation lag, PQ state,
@@ -2308,8 +2814,7 @@ class GpuVectorIndex(VectorIndex):
             "staged_lag": max(self._staged_gen - self._published_gen, 0),
             "compressed": self.compressed,
             "pq": None,
-            # the IVF plane is not ported yet (ROADMAP queue 1 item 9)
-            "ivf": {"enabled": False, "trained": False},
+            "ivf": self._ivf_health(),
             "host_fallback_cache": {
                 "resident": cache is not None,
                 "gen": cache[0] if cache is not None else None,
@@ -2446,6 +2951,9 @@ class GpuVectorIndex(VectorIndex):
             self.live = 0
             self._doc_to_slot.clear()
             self._store = self._sq_norms = self._tombs = self._s2d_dev = None
+            # the partition layout indexes the old slot space: drop it; the
+            # retrain after the rebuild reclusters the dense slot space
+            self._ivf_reset()
             self._slot_to_doc = np.zeros(0, dtype=np.int64)
             self._host_tombs = np.zeros(0, dtype=bool)
             # suppress the declarative compress trigger for the rebuild:
@@ -2461,6 +2969,7 @@ class GpuVectorIndex(VectorIndex):
                 self._restoring = prev_restoring
             if was_compressed and self.n > 0:
                 self._enable_pq(pq, self._store[: self.n].float(), save=False, pq4q=pq4q)
+            self._maybe_ivf_train()
             if self._published_gen != self._staged_gen:
                 self._publish_snapshot()
             ms = (time.perf_counter() - t_compact0) * 1000.0
@@ -2479,6 +2988,7 @@ class GpuVectorIndex(VectorIndex):
                     pass
                 self._log = None
             self._store = self._sq_norms = self._tombs = self._s2d_dev = None
+            self._ivf_reset()
             self._blk_cache.clear()
             self.dim = None
             self.capacity = 0

@@ -21,8 +21,12 @@ nibble. Search runs three stages:
 Port notes: the group selection is an exact `torch.topk`, and stages 2
 and 3 run in query blocks that keep each [rows, C, D] f32 gather near
 2 GB (`topk.query_block`): the port's choice, the JAX program gathers the
-whole batch at once (206 GB at B=16384, C=4096, D=768). The IVF
-composition (`search_ivf_pq4`) waits for the IVF plane.
+whole batch at once (206 GB at B=16384, C=4096, D=768).
+
+The IVF composition (`search_ivf_pq4`) runs the same three stages over
+the probed buckets only, with ops/ivf.py's probe, masking and exact
+collect-then-merge: stage 1 is the byte-LUT scan per probed candidate
+(no kernel: the reference's IVF funnel is an XLA program too).
 """
 
 from __future__ import annotations
@@ -30,10 +34,10 @@ from __future__ import annotations
 import torch
 
 from weaviate_tpu_torch.entities import vectorindex as vi
-from weaviate_tpu_torch.ops import pq_gmin
+from weaviate_tpu_torch.ops import ivf, pq_gmin
 from weaviate_tpu_torch.ops.gmin_scan import G, scan_bias
 from weaviate_tpu_torch.ops.topk import (pack_topk, query_block, rescore_distances,
-                                         smallest_k, translate_pack)
+                                         retranslate_packed, smallest_k, translate_pack)
 
 C4 = 16  # centroids per 4-bit sub-quantizer (one nibble)
 
@@ -207,3 +211,76 @@ def search_pq4_funnel_fused(codes4p, codes8, norms4, norms8, tombs, n, q, codebo
                                codebook4, flat_cb8, rescore_rows, allow_words, use_allow, k,
                                metric, rg4, rc, active_g, kernel, rot, codes8_blk)
     return translate_pack(top, idx, s2d)
+
+
+# -- IVF composition ----------------------------------------------------------
+
+
+def ivf_pq4_topk(codes4p, codes8, norms4, norms8, tombs, n, q, allow_words, codebook4,
+                 codebook8, centroids, buckets, rot, rescore_rows, k, metric, use_allow, top_p,
+                 c1, rc, gp, steps2, qb=None):
+    """The IVF-probed three-stage funnel: probe -> 4-bit byte-LUT ADC over
+    the probed buckets (keep c1) -> exact 8-bit ADC of the survivors (keep
+    rc) -> exact distances against the bf16 rescore copy with the raw
+    query (without a copy, the 8-bit ADC distances are reported).
+    codebook4 [M, 16, ds] and codebook8 [M, C, ds] are f32. -> ([B, k]
+    dists, [B, k] slot idx int32, -1 missing)."""
+    qf_all, parts_all, buckets_ext, allow = ivf._prep(q, tombs, n, allow_words, use_allow,
+                                                      centroids, buckets, top_p, metric)
+    qr_all = qf_all if rot is None else qf_all @ rot
+    cap, mb = codes4p.shape
+    joff = torch.arange(mb, device=q.device) * 256
+    total = top_p * buckets.shape[1]
+    tops, idxs = [], []
+    for s, e in ivf._blocks(qf_all.shape[0], qb):
+        qf, qr, parts = qf_all[s:e], qr_all[s:e], parts_all[s:e]
+        q_sq = torch.sum(qr ** 2, dim=-1, keepdim=True)
+        lut2 = byte_lut(qr, codebook4)                      # [b, mb*256]
+
+        def score_adc4(sl):
+            bq, g = sl.shape
+            safe = torch.clamp(sl, 0, cap - 1)
+            idx = (codes4p[safe].long() + joff).reshape(bq, g * mb)
+            acc = torch.gather(lut2, 1, idx).reshape(bq, g, mb).sum(-1)
+            if metric == vi.DISTANCE_L2:
+                return torch.clamp(q_sq - 2.0 * acc + norms4[safe], min=0.0)
+            if metric == vi.DISTANCE_DOT:
+                return -acc
+            return 1.0 - acc
+
+        # c1 is already a wide cut over rc: no slack on stage 1
+        groups = ivf._probed_groups(parts, buckets_ext, gp, n, tombs, allow)
+        _, pslots = ivf._grouped_topk(groups, score_adc4, c1, total, slack=False)
+        score_adc8 = ivf.adc_scorer(codes8, norms8, codebook8, qr, metric)
+        top2, idx2 = ivf._grouped_topk(ivf._regroup(pslots, pslots >= 0, steps2),
+                                       score_adc8, rc, c1)
+        if rescore_rows is not None:
+            rows = rescore_rows[torch.clamp(idx2, 0, cap - 1)]
+            ed3 = rescore_distances(rows, qf, metric)
+            ed3 = torch.where(torch.isinf(top2), float("inf"), ed3)
+            top, pos = smallest_k(ed3, k)
+            idx = torch.gather(idx2, 1, pos)
+        else:
+            top, idx = top2[:, :k], idx2[:, :k]
+        tops.append(top)
+        idxs.append(idx)
+    return ivf._finish(tops, idxs)
+
+
+def search_ivf_pq4(codes4p, codes8, norms4, norms8, tombs, n, q, allow_words, codebook4,
+                   codebook8, centroids, buckets, rot, rescore_rows, k, metric, use_allow,
+                   top_p, c1, rc, gp, steps2, qb=None):
+    """ivf_pq4_topk packed into the staged [B, 2k] int32 layout."""
+    return pack_topk(*ivf_pq4_topk(codes4p, codes8, norms4, norms8, tombs, n, q, allow_words,
+                                   codebook4, codebook8, centroids, buckets, rot, rescore_rows,
+                                   k, metric, use_allow, top_p, c1, rc, gp, steps2, qb))
+
+
+def search_ivf_pq4_fused(codes4p, codes8, norms4, norms8, tombs, n, q, allow_words, codebook4,
+                         codebook8, centroids, buckets, rot, rescore_rows, s2d, k, metric,
+                         use_allow, top_p, c1, rc, gp, steps2, qb=None):
+    """search_ivf_pq4 with the slot->doc translation on the device."""
+    packed = search_ivf_pq4(codes4p, codes8, norms4, norms8, tombs, n, q, allow_words,
+                            codebook4, codebook8, centroids, buckets, rot, rescore_rows, k,
+                            metric, use_allow, top_p, c1, rc, gp, steps2, qb)
+    return retranslate_packed(packed, s2d)

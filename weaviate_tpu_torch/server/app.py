@@ -11,13 +11,14 @@ The port's App differs from the JAX package's in three ways:
 - a `device` keyword, passed to the DB and from there to every Shard's
   index; None (the default) is the CUDA card, and the App raises at once
   when torch sees none unless the caller passes device="cpu";
-- the fused-dispatch toggle goes to the port's index (`index/gpu.py`);
+- the fused-dispatch and IVF toggles go to the port's index
+  (`index/gpu.py`);
 - it refuses, with a ValueError naming the ROADMAP item that brings each,
-  what the port does not serve yet: IVF_ENABLED (queue 1 item 9),
-  TPU_DEVICE_MESH_SHARDS > 1 (item 10), ENABLE_MODULES or an injected
-  module provider (item 14), and a cluster config, CLUSTER_HOSTNAME or
-  CLUSTER_JOIN (item 15). With none of them set the reference App has no
-  modules, no cluster and no IVF either, so the default App is whole.
+  what the port does not serve yet: TPU_DEVICE_MESH_SHARDS > 1 (queue 1
+  item 10), ENABLE_MODULES or an injected module provider (item 14), and
+  a cluster config, CLUSTER_HOSTNAME or CLUSTER_JOIN (item 15). With none
+  of them set the reference App has no modules and no cluster either, so
+  the default App is whole.
 """
 
 from __future__ import annotations
@@ -41,9 +42,6 @@ from weaviate_tpu_torch.version import __version__ as VERSION
 def _refuse_unported(config: Config, modules) -> None:
     """Raise a ValueError naming the ROADMAP item that brings whatever the
     config asks for that the port does not serve yet."""
-    if config.ivf.enabled:
-        raise ValueError("IVF_ENABLED: the IVF scan plane is not ported yet: "
-                         "ROADMAP queue 1 item 9")
     if config.device_mesh_shards > 1:
         raise ValueError("TPU_DEVICE_MESH_SHARDS > 1: the multi-device mesh "
                          "is not ported yet: ROADMAP queue 1 item 10")
@@ -89,6 +87,9 @@ class App:
 
         self._fused_token = gpu_index.set_fused_enabled(
             self.config.fused_dispatch_enabled)
+        # the IVF scan plane: the same process-wide toggle shape; the token
+        # scopes the revert to this App
+        self._ivf_token = gpu_index.set_ivf_config(self.config.ivf)
 
         # end-to-end request tracing (monitoring/tracing.py): the tracer is
         # a process-wide module global — shards and the coalescer reach it
@@ -463,6 +464,7 @@ class App:
         from weaviate_tpu_torch.index import gpu as gpu_index
 
         gpu_index.unset_fused_enabled(getattr(self, "_fused_token", None))
+        gpu_index.unset_ivf_config(getattr(self, "_ivf_token", None))
         if self.tracer is not None:
             from weaviate_tpu_torch.monitoring import tracing
 

@@ -41,6 +41,12 @@ class DeviceState:
     pq4: Optional[ProductQuantizer] = None
     codes4: Optional[torch.Tensor] = None        # [capacity, M/2] uint8 (pq.bits=4)
     recon_norms4: Optional[torch.Tensor] = None  # [capacity] f32
+    # a trained IVF layout (either store kind)
+    ivf_centroids: Optional[torch.Tensor] = None  # [nlist, dim] f32
+    ivf_buckets: Optional[torch.Tensor] = None    # [nlist, cap_p] int32, -1 padding
+    ivf_pca_proj: Optional[torch.Tensor] = None   # [dim, dp] f32 (PCA prefilter)
+    ivf_pca_rows: Optional[torch.Tensor] = None   # [capacity, dp] f32
+    ivf_meta: Optional[tuple] = None              # (nlist, cap_p, recluster gen)
 
 
 def _quantizer(codebook, rotation, dim: int, metric: str, dev, opq: bool) -> ProductQuantizer:
@@ -79,6 +85,9 @@ def state_from_arrays(arrays: dict, device=None, store_dtype: str = "float32") -
         (bf16 values, any float dtype) with "rescore_sq_norms", and
         "pq4_codebook" [M, 16, ds] with "codes4" [capacity, M/2] and
         "recon_norms4",
+    and, for a trained IVF layout, "ivf_centroids" [nlist, dim], "ivf_buckets"
+    [nlist, cap_p] int32, "ivf_meta" (nlist, cap_p, gen) and optionally
+    "ivf_pca_proj" [dim, dp] with "ivf_pca_rows" [capacity, dp],
     -> the port's DeviceState on `device` (the card unless device="cpu")."""
     dev = resolve_device(device)
     cap, n, dim = int(arrays["capacity"]), int(arrays["n"]), int(arrays["dim"])
@@ -93,6 +102,13 @@ def state_from_arrays(arrays: dict, device=None, store_dtype: str = "float32") -
 
     state = DeviceState(tombs=dev_tensor(np.asarray(arrays["tombs"])[:cap], np.bool_),
                         slot_to_doc=slot_to_doc.copy(), n=n, capacity=cap, dim=dim)
+    if arrays.get("ivf_centroids") is not None:
+        state.ivf_centroids = dev_tensor(arrays["ivf_centroids"], np.float32)
+        state.ivf_buckets = dev_tensor(arrays["ivf_buckets"], np.int32)
+        state.ivf_meta = tuple(int(v) for v in arrays["ivf_meta"])
+        if arrays.get("ivf_pca_proj") is not None:
+            state.ivf_pca_proj = dev_tensor(arrays["ivf_pca_proj"], np.float32)
+            state.ivf_pca_rows = opt("ivf_pca_rows", np.float32)
     if "pq_codebook" not in arrays:
         if store_dtype not in STORE_DTYPES:
             raise ValueError(f"store_dtype must be float32 or bfloat16, got {store_dtype!r}")
