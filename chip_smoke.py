@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port (weaviate_tpu_torch) on one NVIDIA card at
 the headline scale and at the PQ configuration's, run its stage profiler
 at full width, drive its Shard and its App (REST, GraphQL, gRPC, the
-coalescer) at 2^18 objects, its IVF scan plane on the headline's data and
-its device BM25 engine on passage-length documents, and check them.
+coalescer) at 2^18 objects, its IVF scan plane on the headline's data,
+its device BM25 engine on passage-length documents and its mesh index
+over four slabs of the card, and check them.
 
     python3 chip_smoke.py [--seed 7]
 
@@ -132,9 +133,31 @@ G. device BM25: a Shard with `invertedIndexConfig.bm25.device` and one
    import rate, the p50 of one keyword query on each engine, the batch
    lane's p50 and its busy share are printed.
 
+H. the mesh index (`hnsw_tpu_mesh`, index/mesh.py over
+   parallel/mesh_search.py) over 4 slabs of the one card (`make_mesh(devices=
+   [cuda:0] * 4)`; a second card also gets a run over all cards, and
+   without one the script says that the distinct-card run was not made).
+   First K1 launches under its tensor's device with another context
+   current (`device_guard_check`). H1, A's data and configuration (seed 7,
+   1M x 128, l2): import through `add_batch` (262,144 rows a slab), K1
+   against its plain version on slab 0's store (B 256 and 16384), sync B
+   16384 and B 256 with recall@10 >= 0.99 and exact f32 distances, 4 K1
+   launches a dispatch, async == sync and fused == staged bit for bit, the
+   two allowLists (masked scans: the mesh has no gather tier), 1000
+   deletes, a profiled batch with one device->host copy, the cross-slab
+   merge timed alone, then a restart of the directory onto 2 slabs
+   (recall >= 0.99 against ground truth without the deleted docs) held
+   against the single-device index on the same data and deletes (p50s
+   beside, and A's). H2, the same over a bf16 store (K1-bf16, recall >=
+   0.98). H3, B2's configuration (1M x 768, dot, M 96, C 256, codes only)
+   restored from B2's vector.log and pq.npz (fitted here when B did not
+   run): K2 against its plain version on slab 0, 4 K2 launches a
+   dispatch, answers against B2's single-device ones (tie-aware >= 0.99),
+   p50s beside B2's, a profiled batch.
+
     python3 chip_smoke.py --only F,G
 
-runs only the named workloads (a subset of A,B,A16,C,D,E,F,G) and prints
+runs only the named workloads (a subset of A,B,A16,C,D,E,F,G,H) and prints
 no result lines: a quick card check of one part.
 
     python3 chip_smoke.py --busy-share CHECKOUT
@@ -165,10 +188,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    profiler modes with their launch counts (each count set to 0 just
    before the modes run and read just after), K1's time on the same store
    and shape, then the layout kernels' timings and their ratio to it;
-6. A-bf16, then D, then E, then F, then G (each names itself on stderr);
+6. A-bf16, then D, then E, then F, then G, then H (each names itself on
+   stderr);
 7. the card line, one JSON line of per-kernel numbers (K1's launches and
-   max abs error include D's and E's, K1-bf16's the A-bf16 run's), the
-   result line.
+   max abs error include D's, E's and H1's, K1-bf16's the A-bf16 run's
+   and H2's, K2's H3's), the result line.
 
 Each phase also names itself on stderr as it starts. A watchdog stops the
 run at WATCHDOG_S seconds: it prints every thread's Python stack to stderr
@@ -240,9 +264,14 @@ B_IVF = {"nlist": 2048, "train_iters": 2}
 G_N, G_WORDS, G_VOCAB = 131072, 50, 30000  # workload G: documents, words each, vocabulary
 G_Q, G_IMPORT = 256, 8192  # keyword queries (2-8 words); documents per Shard.put_batch
 G_ALLOW_Q, G_BATCH_REPS = 64, 5  # queries per allowList; timed runs of the batch lane
+H_SLABS = 4               # workload H: slabs of the mesh (one card named H_SLABS times)
+H_B, H_REPS = 256, 7      # the small batch of A, B2 and H, and its timed runs
+H_RECALL_BAR, H_BF16_BAR = 0.99, 0.98  # tests/test_recall_fixture.py's multi-device bar
 BUSY_REPS = 3             # profiled batches per workload of --busy-share
 WATCHDOG_S = 1140  # seconds: a run past this has stalled (a whole run takes ~900 s)
 T_START = time.perf_counter()
+WANTED: set = set()  # the workloads this run drives (main sets it)
+SHARED: dict = {}    # what a workload hands a later one: A's and B2's p50s, B2's answers and files
 
 
 def log(msg: str) -> None:
@@ -545,6 +574,8 @@ def headline(dev, card, seed) -> dict:
         if not (np.array_equal(results[0][0], ids0) and np.array_equal(results[0][1], d0)):
             raise AssertionError("the async result differs from the sync result")
         staged_p50 = staged_batches(idx, batches[0], 4, ids0, d0, "A")
+        _, p50_256, _, _ = sync_batches(idx, batches[0][:H_B], H_REPS)
+        SHARED["A"] = {"p50": p50 * 1e3, "p50_256": p50_256 * 1e3}
 
         gmin_scan.launches = 0
         r_f, r_s = filtered_checks(idx, batches[0], x_dev, f_rows, rng, dev, "l2", Bitmap)
@@ -865,6 +896,9 @@ def pq_workload(dev, card, seed):
 
         q_cpu = batches[0][cpu_rows]
         card_ids, card_d = idx.search_by_vectors(q_cpu, K)
+        _, p50_256, _, _ = sync_batches(idx, batches[0][:H_B], H_REPS)
+        SHARED["B2"] = {"q": q_cpu, "ids": card_ids, "d": card_d, "p50": p50 * 1e3,
+                        "p50_256": p50_256 * 1e3}
         rg = pq_gmin.eligible_rg(False, "dot", pq8, len(q_cpu), ncols, K, PQ_DIM)
         codes_c = snap.codes.cpu()
         cb_c = pq8.codebook_dev().cpu()
@@ -883,8 +917,11 @@ def pq_workload(dev, card, seed):
         out["k2"] = dict(launches=launches, max_abs_err=err)
         idx.shutdown()
         del idx, snap, codes3, biases
+        if "H" in WANTED:
+            SHARED["B2_dir"] = tmp  # H opens its mesh on this directory's files
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if "B2_dir" not in SHARED:
+            shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
 
     # B3: bits 4, rescore (the funnel, K3)
@@ -2234,6 +2271,399 @@ def bm25_workload(dev, card, seed) -> None:
 
 # -- the busy-share comparison -------------------------------------------------------
 
+# -- workload H: the multi-device mesh index ------------------------------------------
+
+def device_guard_check(dev, card) -> None:
+    """K1 launches under its tensor's device, not the thread's current one:
+    with a second card the tensors sit on cuda:1 while cuda:0 is current;
+    with one card the launch runs inside a torch.cuda.device context of
+    the same card. The library is wrapped to read the current device at
+    the launch (not counted); the answer is held against the plain
+    version."""
+    from weaviate_tpu_torch.ops import gmin_scan
+    n = torch.cuda.device_count()
+    where = torch.device("cuda", 1) if n > 1 else dev
+    real = gmin_scan._gmin_lib()
+    seen = []
+
+    class Spy:
+        def __getattr__(self, name):
+            fn = getattr(real, name)
+            if not name.endswith("_launch"):
+                return fn
+            return lambda *a: seen.append(torch.cuda.current_device()) or fn(*a)
+
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((256, DIM), dtype=np.float32)).to(where)
+    store3 = torch.from_numpy(rng.standard_normal((16, 4096, DIM), dtype=np.float32)).to(where)
+    bias = torch.zeros((16, 4096), device=where)
+    gmin_scan._gmin_lib = lambda: Spy()
+    launches = gmin_scan.launches
+    try:
+        with torch.cuda.device(dev):
+            got = gmin_scan.group_min_scores(q, store3, bias, -2.0)
+    finally:
+        gmin_scan._gmin_lib = lambda: real
+        gmin_scan.launches = launches
+    torch.testing.assert_close(got, gmin_scan.group_min_scores_reference(q, store3, bias, -2.0),
+                               rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+    if seen != [where.index]:
+        raise AssertionError(f"K1 launched on device {seen}, its tensors on {where}")
+    log(f"H device guard: K1 on {where} launched with {where} current"
+        + (" while cuda:0 was the thread's device" if n > 1 else
+           " (one card: the guard on the same card; a distinct current card not tested)"))
+
+
+def slab_k1_check(label, idx, dev, seed) -> float:
+    """K1 (f32 or bf16 by the store) against its plain version on slab 0's
+    own store, at the slab's tile plan: B 256 and 16384, l2 and dot, dead
+    slots and 100 whole dead groups. -> max abs error."""
+    from weaviate_tpu_torch.ops import gmin_scan
+    snap = idx._read_snapshot()
+    G = gmin_scan.G
+    n_loc, n0 = snap.n_loc, int(snap.counts[0])
+    ncols, ag = n_loc // G, -(-n0 // (n_loc // G))
+    store3 = snap.store[0].view(G, ncols, snap.dim)
+    rng = np.random.default_rng(seed)
+    dead = dead_mask(n_loc, ncols, n0, rng, dev, snap.tombs[0])
+    biases = [(m, a, torch.where(dead, float("inf"), base).view(G, ncols))
+              for m, a, base in (("l2", -2.0, snap.sq_norms[0]),
+                                 ("dot", -1.0, torch.zeros_like(snap.sq_norms[0])))]
+    q = torch.from_numpy(make_data(BATCH, snap.dim, rng)).to(dev)
+    k1 = lambda q_, b2, a, g: gmin_scan.group_min_scores(q_, store3, b2, a, active_g=g)  # noqa: E731
+    k1_plain = lambda q_, b2, a, g: gmin_scan.group_min_scores_reference(q_, store3, b2, a, g)  # noqa: E731
+    log(f"{label} K1 on slab 0's {snap.store[0].dtype} store: n_loc {n_loc}, ncols {ncols}, "
+        f"ag {ag}{plan_note(gmin_scan.resident_plan(snap.dim, ag))}")
+    launches = gmin_scan.launches
+    err = check_kernel(f"gmin_scan {str(snap.store[0].dtype)[6:]} ({label} slab 0)", k1,
+                       k1_plain, q, biases, ncols, ag, sizes=(H_B, BATCH))
+    gmin_scan.launches = launches  # the check's launches are not the main path's
+    del snap, store3, dead, biases
+    torch.cuda.empty_cache()
+    return err
+
+
+def mesh_profile(label, idx, q, card) -> Optional[tuple]:
+    """One profiled sync batch of the mesh: busy share, device ms, and the
+    device->host copies in it (one: the packed result)."""
+    wall_ms, kernels = profile_batch(lambda: idx.search_by_vectors(q, K))
+    busy = sum(ms for _, ms, _ in kernels)
+    d2h = sum(n for key, _, n in kernels if "DtoH" in key)
+    if not kernels:
+        log(f"[{card}] {label} profile: the profiler saw no device time (not measured)")
+        return None
+    log(f"[{card}] {label} profile of one {len(q)}-query sync batch: wall {wall_ms:.1f} ms, "
+        f"device {busy:.1f} ms ({busy / wall_ms:.1%} busy); device->host copies {d2h}")
+    for key, ms, count in kernels[:12]:
+        log(f"  {ms:8.3f} ms  x{count:<4d} {key[:100]}")
+    if d2h != 1:
+        raise AssertionError(f"{label}: {d2h} device->host copies in one dispatch (want 1)")
+    return busy / wall_ms, busy
+
+
+def merge_ms(dev, b, n_slabs, card, label) -> float:
+    """Device ms of the cross-slab merge alone (parallel/mesh_search._merge,
+    fused) on n_slabs blocks of [b, 3k] at the dispatch's shapes."""
+    from weaviate_tpu_torch.parallel import mesh_search
+    g = torch.Generator(device=dev).manual_seed(1)
+    s2d = torch.arange(1 << 20, device=dev)
+    blocks = [mesh_search._epilogue(
+        torch.sort(torch.rand((b, K), device=dev, generator=g), dim=1).values,
+        torch.randint(0, 1 << 20, (b, K), device=dev, generator=g), s2d, 0, True)
+        for _ in range(n_slabs)]
+    ms = cuda_ms(lambda: mesh_search._merge(blocks, K, True), 5)
+    log(f"[{card}] {label} cross-slab merge alone ({n_slabs} x [{b}, {3 * K}] int32 on the lead "
+        f"device): {ms:.3f} ms")
+    return ms
+
+
+def tie_free(d) -> np.ndarray:
+    """Rows whose k distances are all distinct."""
+    return (np.diff(d, axis=1) != 0).all(1)
+
+
+def exact_topk_live(q, x, k, gone) -> np.ndarray:
+    """exact_topk with the rows `gone` (deleted) left out."""
+    d = exact_dists(q, x, "l2")
+    d[:, torch.from_numpy(gone).to(q.device)] = float("inf")
+    return torch.topk(d, k, dim=1, largest=False).indices.cpu().numpy()
+
+
+def mesh_workload(dev, card, seed) -> dict:
+    """Workload H: the mesh index (`hnsw_tpu_mesh`) over H_SLABS slabs of
+    one card. H1 A's data and configuration, H2 over a bf16 store, H3 B2's
+    codes-only shape on B2's files. -> each kernel's launches on H's main
+    paths and its max abs error."""
+    from weaviate_tpu_torch.entities.vectorindex import parse_and_validate_config
+    from weaviate_tpu_torch.index import new_vector_index
+    from weaviate_tpu_torch.index.mesh import MeshVectorIndex
+    from weaviate_tpu_torch.ops import gmin_scan
+    from weaviate_tpu_torch.parallel.mesh_search import make_mesh
+    from weaviate_tpu_torch.storage.bitmap import Bitmap
+
+    out = {}
+    device_guard_check(dev, card)
+    mesh = make_mesh(devices=[dev] * H_SLABS)
+    rng = np.random.default_rng(seed)
+    vecs = make_data(N, DIM, rng)
+    batches = queries(vecs, rng)
+    q_small = batches[0][:H_B]
+    x_dev = torch.from_numpy(vecs).to(dev)
+    gt_rows = np.arange(0, BATCH, BATCH // N_GT)
+    gt = exact_topk(torch.from_numpy(batches[0][gt_rows]).to(dev), x_dev, K)
+
+    # H1: A's data and configuration over H_SLABS slabs
+    phase("H1")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_h1_")
+    try:
+        cfg = parse_and_validate_config("hnsw_tpu_mesh", {"distance": "l2-squared"})
+        idx = MeshVectorIndex(cfg, tmp, mesh=mesh)
+        t0 = time.perf_counter()
+        idx.add_batch(np.arange(N), vecs)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        log(f"H1 ingest: {N} rows over {idx.n_dev} slabs on {dev} in {ingest_s:.2f} s; n_loc "
+            f"{idx.n_loc}, counts {idx._counts.tolist()}, stores "
+            f"{sum(t.numel() * 4 for t in idx._store) / 2**20:.0f} MiB")
+        err = slab_k1_check("H1", idx, dev, seed + 20)
+
+        gmin_scan.launches = 0
+        lat, p50, ids0, d0 = sync_batches(idx, batches[0], 4)
+        per_dispatch = gmin_scan.launches / 4
+        lat_s, p50_s, ids_s, d_s = sync_batches(idx, q_small, H_REPS)
+        recall = recall_at_k(ids0[gt_rows].astype(np.int64), gt)
+        recall_s = recall_at_k(ids_s.astype(np.int64),
+                               exact_topk(torch.from_numpy(q_small).to(dev), x_dev, K))
+        log(f"H1 sync: {BATCH}-query batches {['%.1f ms' % (t * 1e3) for t in lat]}, recall@10 "
+            f"{recall:.4f}; {H_B}-query p50 {p50_s * 1e3:.2f} ms, recall@10 {recall_s:.4f}; "
+            f"K1 launches per dispatch {per_dispatch:g}")
+        if per_dispatch != H_SLABS or min(recall, recall_s) < H_RECALL_BAR:
+            raise AssertionError(f"H1: {per_dispatch} K1 launches a dispatch, recall "
+                                 f"{recall:.4f} / {recall_s:.4f}")
+        rows = torch.from_numpy(ids0[gt_rows].astype(np.int64)).to(dev)
+        q_gt = torch.from_numpy(batches[0][gt_rows]).to(dev)
+        want = ((x_dev[rows] - q_gt[:, None, :]) ** 2).sum(-1).cpu().numpy()
+        np.testing.assert_allclose(d0[gt_rows], want, rtol=1e-5, atol=1e-4)
+        qps, results = async_batches(idx, batches, 8)
+        if not (np.array_equal(results[0][0], ids0) and np.array_equal(results[0][1], d0)):
+            raise AssertionError("H1: the async result differs from the sync result")
+        staged_p50 = staged_batches(idx, batches[0], 3, ids0, d0, "H1")
+        r_f, r_s = filtered_checks(idx, batches[0], x_dev, np.arange(0, BATCH, BATCH // 256),
+                                   rng, dev, "l2", Bitmap)
+        launches = gmin_scan.launches
+        log(f"H1 async {qps:.0f} QPS (bit-identical to sync); filtered recall {r_f:.4f} "
+            f"(every third doc) / {r_s:.4f} (1000 docs, the masked scan: the mesh has no "
+            f"gather tier); distances exact f32 (rtol 1e-5); K1 launches {launches}")
+        ids_d, d_d = delete_check(idx, ids0, batches[0], N, "H1")
+        gone = np.unique(ids0[:, 0].astype(np.int64))[:1000]
+        busy = mesh_profile("H1", idx, batches[0], card)
+        m_ms = merge_ms(dev, BATCH, H_SLABS, card, "H1")
+        idx.shutdown()
+        del idx
+
+        # restart onto 2 slabs: the replay re-balances
+        phase("H1 restart")
+        t0 = time.perf_counter()
+        idx = MeshVectorIndex(cfg, tmp, mesh=make_mesh(devices=[dev] * 2))
+        gmin_scan.launches = 0
+        ids_r, d_r = idx.search_by_vectors(batches[0], K)
+        restart_s = time.perf_counter() - t0
+        launches += gmin_scan.launches
+        gt_live = exact_topk_live(q_gt, x_dev, K, gone)
+        recall_r = recall_at_k(ids_r[gt_rows].astype(np.int64), gt_live)
+        log(f"H1 restart onto {idx.n_dev} slabs in {restart_s:.2f} s: counts "
+            f"{idx._counts.tolist()}, live {len(idx)}, recall@10 {recall_r:.4f} against exact "
+            f"ground truth without the deleted docs; K1 launches {gmin_scan.launches}")
+        if idx.n_dev != 2 or len(idx) != N - len(gone) or recall_r < H_RECALL_BAR \
+                or gmin_scan.launches != 2:
+            raise AssertionError("H1: the restart onto 2 slabs is off")
+        idx.shutdown()
+        del idx
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the single-device index on the same data, the same deletes: answers
+    # and p50s beside the mesh's
+    phase("H1 single device")
+    one = new_vector_index(parse_and_validate_config("hnsw_tpu", {"distance": "l2-squared"}),
+                           "", persist=False)
+    one.add_batch(np.arange(N), vecs)
+    _, p50_1, _, _ = sync_batches(one, batches[0], 4)
+    _, p50_1s, _, _ = sync_batches(one, q_small, H_REPS)
+    one.delete(*gone.tolist())
+    ids_1, d_1 = one.search_by_vectors(batches[0], K)
+    one.shutdown()
+    del one
+    # both tiers keep candidate groups by bf16 scores, the single device 32
+    # groups of 65536 columns, the 2-slab mesh 2 x 32 of 32768: where the
+    # answers differ, one of them kept a closer row the other did not
+    both = tie_free(d_1) & tie_free(d_r)
+    differ = both & (ids_1 != ids_r).any(1)
+    worse = differ & (d_r.sum(1) > d_1.sum(1))
+    log(f"H1 restart vs the single-device index: {int(both.sum())} of {BATCH} rows tie-free "
+        f"on both sides, ids equal on {int((both & ~differ).sum())}; {int(differ.sum())} "
+        f"differ: the mesh's answer closer on {int((differ & ~worse).sum())}, farther on "
+        f"{int(worse.sum())}")
+    if int(worse.sum()) > BATCH // 1000:
+        raise AssertionError(f"H1: the mesh's answer is farther than the single-device index's "
+                             f"on {int(worse.sum())} tie-free rows (at most {BATCH // 1000})")
+    a = SHARED.get("A")
+    log(f"[{card}] H1 end to end, k={K}, n={N}, {H_SLABS} slabs on one card: sync p50 "
+        f"{BATCH} {p50 * 1e3:.1f} ms (staged {staged_p50 * 1e3:.1f}), {H_B} "
+        f"{p50_s * 1e3:.2f} ms; single device on the same data {p50_1 * 1e3:.1f} / "
+        f"{p50_1s * 1e3:.2f} ms"
+        + (f"; workload A {a['p50']:.1f} / {a['p50_256']:.2f} ms" if a else "")
+        + f"; busy {'not measured' if busy is None else f'{busy[0]:.1%}'}, device "
+        f"{'not measured' if busy is None else f'{busy[1]:.1f} ms'}, merge {m_ms:.3f} ms; "
+        f"pipelined {qps:.0f} QPS; ingest {N / ingest_s:.0f} rows/s; restart onto 2 slabs "
+        f"{restart_s:.2f} s")
+    out["k1"] = {"launches": launches, "max_abs_err": err}
+
+    if torch.cuda.device_count() > 1:
+        phase("H1 distinct cards")
+        cards = make_mesh(device=dev)
+        idx = MeshVectorIndex(cfg, "", persist=False, mesh=cards)
+        idx.add_batch(np.arange(N), vecs)
+        ids_c, _ = idx.search_by_vectors(batches[0], K)
+        r_c = recall_at_k(ids_c[gt_rows].astype(np.int64), gt)
+        log(f"H1 over {len(cards)} distinct cards {[str(c) for c in cards]}: recall@10 {r_c:.4f}")
+        if r_c < H_RECALL_BAR:
+            raise AssertionError(f"H1 distinct cards: recall {r_c:.4f}")
+        idx.drop()
+        del idx
+    else:
+        log(f"H1 over distinct cards: not run, torch sees {torch.cuda.device_count()} card "
+            "(copies between cards and the device guards across cards are not verified here)")
+
+    # H2: the same over a bf16 store (K1-bf16 per slab)
+    phase("H2")
+    cfg16 = parse_and_validate_config("hnsw_tpu_mesh", {"distance": "l2-squared",
+                                                        "storeDtype": "bfloat16"})
+    idx = MeshVectorIndex(cfg16, "", persist=False, mesh=mesh)
+    idx.add_batch(np.arange(N), vecs)
+    if idx._store[0].dtype != torch.bfloat16:
+        raise AssertionError("H2: the store is not bf16")
+    err16 = slab_k1_check("H2", idx, dev, seed + 21)
+    gmin_scan.launches = 0
+    lat16, p50_16, ids16, _ = sync_batches(idx, batches[0], 4)
+    _, p50_16s, _, _ = sync_batches(idx, q_small, 3)
+    launches16 = gmin_scan.launches
+    recall16 = recall_at_k(ids16[gt_rows].astype(np.int64), gt)
+    log(f"[{card}] H2 bf16 store over {H_SLABS} slabs: sync {BATCH} "
+        f"{['%.1f ms' % (t * 1e3) for t in lat16]} (p50 {p50_16 * 1e3:.1f}), {H_B} p50 "
+        f"{p50_16s * 1e3:.2f} ms; recall@10 {recall16:.4f}; K1-bf16 launches {launches16}")
+    if recall16 < H_BF16_BAR or launches16 != H_SLABS * 7:
+        raise AssertionError(f"H2: recall {recall16:.4f}, launches {launches16}")
+    idx.drop()
+    del idx, x_dev
+    torch.cuda.empty_cache()
+    out["k1_bf16"] = {"launches": launches16, "max_abs_err": err16}
+
+    # H3: codes only at B2's shape (K2 per slab) on B2's files
+    phase("H3")
+    out["k2"] = mesh_codes(dev, card, seed, mesh)
+    return out
+
+
+def mesh_codes(dev, card, seed, mesh) -> dict:
+    """H3: B2's configuration (1M x 768, dot, M 96, C 256, rescore false)
+    over H_SLABS slabs. On a copy of B2's shard directory (vector.log,
+    pq.npz: shared formats, placement-free) when B ran, else fitted here
+    at B2's settings. -> K2's launches and max abs error."""
+    from weaviate_tpu_torch.entities.vectorindex import parse_and_validate_config
+    from weaviate_tpu_torch.index.mesh import MeshVectorIndex
+    from weaviate_tpu_torch.ops import gmin_scan, pq_gmin
+
+    G = gmin_scan.G
+    conf = pq_conf(rescore=False)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_h3_")
+    src = SHARED.pop("B2_dir", None)
+    try:
+        t0 = time.perf_counter()
+        if src is not None:
+            for name in ("vector.log", "pq.npz"):
+                os.link(os.path.join(src, name), os.path.join(tmp, name))
+            idx = MeshVectorIndex(parse_and_validate_config("hnsw_tpu_mesh", conf), tmp,
+                                  mesh=mesh)
+            how = "restored from B2's vector.log and pq.npz"
+        else:
+            rng = np.random.default_rng(seed + 1)
+            idx = MeshVectorIndex(parse_and_validate_config("hnsw_tpu_mesh", conf), tmp,
+                                  mesh=mesh)
+            idx.add_batch(np.arange(N), make_data(N, PQ_DIM, rng))
+            idx.flush()  # the declared pq block compresses here
+            how = "fitted at B2's settings (B did not run)"
+        torch.cuda.synchronize()
+        open_s = time.perf_counter() - t0
+        snap = idx._read_snapshot()
+        if not snap.compressed or snap.pq.segments != PQ_M:
+            raise AssertionError("H3: the mesh is not compressed at B2's settings")
+        log(f"H3 {how} over {idx.n_dev} slabs in {open_s:.2f} s: n_loc {snap.n_loc}, counts "
+            f"{snap.counts.tolist()}")
+        ncols, n0 = snap.n_loc // G, int(snap.counts[0])
+        ag = -(-n0 // ncols)
+        codes3 = snap.codes[0].view(G, ncols, PQ_M)
+        cb = snap.pq.codebook_bf16()
+        rng = np.random.default_rng(seed + 22)
+        dead = dead_mask(snap.n_loc, ncols, n0, rng, dev, snap.tombs[0])
+        biases = [(m, a, torch.where(dead, float("inf"), base).view(G, ncols))
+                  for m, a, base in (("l2", -2.0, snap.recon_norms[0]),
+                                     ("dot", -1.0, torch.zeros_like(snap.recon_norms[0])))]
+        q_all = torch.from_numpy(make_data(BATCH, PQ_DIM, rng)).to(dev)
+        launches0 = pq_gmin.launches
+        err = check_kernel("pq_gmin (H3 slab 0)",
+                           lambda q, b2, a, g: pq_gmin.pq_group_min_scores(q, codes3, b2, cb, a,
+                                                                           active_g=g),
+                           lambda q, b2, a, g: pq_gmin.pq_group_min_scores_reference(
+                               q, codes3, b2, cb, a, g), q_all, biases, ncols, ag,
+                           sizes=(H_B, BATCH))
+        pq_gmin.launches = launches0
+        del codes3, biases, dead
+        torch.cuda.empty_cache()
+        b2 = SHARED.get("B2")
+        q_big = q_all.cpu().numpy()
+        pq_gmin.launches = 0
+        lat, p50, ids0, d0 = sync_batches(idx, q_big, 3)
+        per_dispatch = pq_gmin.launches / 3
+        _, p50_s, _, _ = sync_batches(idx, q_big[:H_B], H_REPS)
+        if b2 is not None:
+            ids_b, d_b = idx.search_by_vectors(b2["q"], K)
+            hits = tie_aware_hits(ids_b, d_b, b2["ids"], b2["d"])
+            what = f"B2's single-device answers on its {len(b2['q'])} queries"
+        else:
+            recon = snap.pq.decode(torch.cat([c[: int(n)] for c, n in zip(snap.codes,
+                                                                          snap.counts)]))
+            adc = exact_dists(q_all[:N_CPU], recon, "dot")
+            adc_d, adc_i = torch.topk(adc, K, dim=1, largest=False)
+            rows_of = np.concatenate([s * snap.n_loc + np.arange(int(n))
+                                      for s, n in enumerate(snap.counts)])
+            ref_ids = snap.slot_to_doc[rows_of[adc_i.cpu().numpy()]]
+            hits = tie_aware_hits(ids0[:N_CPU].astype(np.int64), d0[:N_CPU], ref_ids,
+                                  adc_d.cpu().numpy())
+            what = f"exact ADC ground truth on {N_CPU} queries"
+            del recon, adc
+        launches = pq_gmin.launches
+        log(f"[{card}] H3 codes only over {H_SLABS} slabs: sync {BATCH} "
+            f"{['%.1f ms' % (t * 1e3) for t in lat]} (p50 {p50 * 1e3:.1f}), {H_B} p50 "
+            f"{p50_s * 1e3:.2f} ms"
+            + (f"; B2 single device {b2['p50']:.1f} / {b2['p50_256']:.2f} ms" if b2 else "")
+            + f"; agreement with {what} {hits:.4f} (tie-aware); K2 launches per dispatch "
+            f"{per_dispatch:g}, in all {launches}")
+        if per_dispatch != H_SLABS or hits < 0.99:
+            raise AssertionError(f"H3: {per_dispatch} K2 launches a dispatch, agreement "
+                                 f"{hits:.4f}")
+        mesh_profile("H3", idx, q_big, card)
+        merge_ms(dev, BATCH, H_SLABS, card, "H3")
+        idx.drop()
+        del idx, snap
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if src is not None:
+            shutil.rmtree(src, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": err}
+
+
 def busy_share(card, seed) -> dict:
     """A's and B1's sync p50 and device-busy share alone (`--busy-share`):
     the same data and configurations as workloads A and B1, through only
@@ -2390,7 +2820,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--only", metavar="LIST",
                     help="run only these workloads (a comma-separated subset of "
-                         "A,B,A16,C,D,E,F,G) and print no result lines")
+                         "A,B,A16,C,D,E,F,G,H) and print no result lines")
     ap.add_argument("--busy-share", metavar="CHECKOUT",
                     help="run only A's and B1's sync p50 and busy share (BUSY_REPS "
                          "profiled batches each), with weaviate_tpu_torch imported from CHECKOUT, a "
@@ -2439,32 +2869,35 @@ def main() -> int:
     # 3-6. the workloads
     runs = (("A", headline), ("B", pq_workload), ("A16", headline_bf16), ("C", profiler_phase),
             ("D", shard_workload), ("E", app_workload), ("F", ivf_workload),
-            ("G", bm25_workload))
-    wanted = set(args.only.split(",")) if args.only else {key for key, _ in runs}
+            ("G", bm25_workload), ("H", mesh_workload))
+    WANTED.update(args.only.split(",") if args.only else (key for key, _ in runs))
     res = {}
-    for key, fn in runs:
-        if key not in wanted:
-            continue
-        t0 = time.perf_counter()
-        phase(f"workload {key}")
-        res[key] = fn(dev, card, args.seed)
-        log(f"workload {key}: {time.perf_counter() - t0:.1f} s; "
-            f"total {time.perf_counter() - t_start:.1f} s")
+    try:
+        for key, fn in runs:
+            if key not in WANTED:
+                continue
+            t0 = time.perf_counter()
+            phase(f"workload {key}")
+            res[key] = fn(dev, card, args.seed)
+            log(f"workload {key}: {time.perf_counter() - t0:.1f} s; "
+                f"total {time.perf_counter() - t_start:.1f} s")
+    finally:
+        shutil.rmtree(SHARED.pop("B2_dir", ""), ignore_errors=True)
     if args.only:
         faulthandler.cancel_dump_traceback_later()
         log(f"workloads {args.only} done")
         return 0
-    k1_f32, pq_rows, a16, layout_rows, d_row, e_row = (
-        res[key] for key in ("A", "B", "A16", "C", "D", "E"))
+    k1_f32, pq_rows, a16, layout_rows, d_row, e_row, h = (
+        res[key] for key in ("A", "B", "A16", "C", "D", "E", "H"))
 
-    # 6. result lines: K1's launches include D's and E's (the Shard's and
-    # the App's main paths), K1-bf16's the bf16-store run's
-    for row in (d_row, e_row):
-        k1_f32["launches"] += row["launches"]
-        k1_f32["max_abs_err"] = max(k1_f32["max_abs_err"], row["max_abs_err"])
-    k1_bf16 = pq_rows[0]
-    k1_bf16["launches"] += a16["launches"]
-    k1_bf16["max_abs_err"] = max(k1_bf16["max_abs_err"], a16["max_abs_err"])
+    # 6. result lines: K1's launches include D's, E's and H1's (the Shard's,
+    # the App's and the mesh's main paths), K1-bf16's the bf16-store runs'
+    # (A-bf16, H2), K2's the mesh's codes tier (H3)
+    k1_bf16, k2 = pq_rows[0], pq_rows[1]
+    for row, extra in ((k1_f32, d_row), (k1_f32, e_row), (k1_f32, h["k1"]),
+                       (k1_bf16, a16), (k1_bf16, h["k1_bf16"]), (k2, h["k2"])):
+        row["launches"] += extra["launches"]
+        row["max_abs_err"] = max(row["max_abs_err"], extra["max_abs_err"])
     faulthandler.cancel_dump_traceback_later()
     log(card)
     print(json.dumps({"kernels": [k1_f32, *pq_rows, *layout_rows]}), flush=True)

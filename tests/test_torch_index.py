@@ -236,9 +236,14 @@ def test_unported_types_and_tiers_raise(tmp_path, monkeypatch):
     noop = torch_new_index(tvi.parse_and_validate_config("noop", {}), str(tmp_path), device="cpu")
     with pytest.raises(ValueError):
         noop.search_by_vector(np.zeros(D, np.float32), 1)
-    mesh = tvi.HnswUserConfig(index_type="hnsw_tpu_mesh")
-    with pytest.raises(ValueError, match="item 10"):
-        torch_new_index(mesh, str(tmp_path / "mesh"), device="cpu")
+    # the mesh (item 10) is served now: the type builds the mesh index, on
+    # the CPU only when asked, with the JAX package's 8 slabs there
+    from weaviate_tpu_torch.index.mesh import MeshVectorIndex
+
+    mesh_idx = torch_new_index(tvi.parse_and_validate_config("hnsw_tpu_mesh", {}),
+                               str(tmp_path / "mesh"), device="cpu")
+    assert isinstance(mesh_idx, MeshVectorIndex) and mesh_idx.n_dev == 8
+    assert all(d.type == "cpu" for d in mesh_idx.mesh)
     # the IVF plane (item 9) is served now: IVF_ENABLED in the environment
     # trains a layout at the first write past IVF_MIN_N and an IVF search answers
     monkeypatch.setenv("IVF_ENABLED", "true")

@@ -565,3 +565,84 @@ def test_app_on_card_under_concurrent_rest_and_the_coalescer(card, tmp_path):
         for app, srv in apps.values():
             srv.stop()
             app.shutdown()
+
+
+@pytest.mark.cuda
+def test_launch_runs_under_the_tensors_device(card, monkeypatch):
+    """K1 and K2 launch with the tensor's device current (the C entry
+    points launch on the thread's current device). With a second card the
+    tensors sit on cuda:1 while cuda:0 is current, and the answers equal
+    the plain versions there; with one card the launch still runs inside a
+    guard naming the tensor's device."""
+    dev = torch.device("cuda", 1) if torch.cuda.device_count() > 1 else card
+    seen = []
+    real_k1, real_k2 = gmin_scan._gmin_lib(), pq_gmin.codes_lib()
+
+    class _Proxy:
+        def __init__(self, lib):
+            self._lib = lib
+
+        def __getattr__(self, name):
+            fn = getattr(self._lib, name)
+            if not name.endswith("_launch"):
+                return fn
+
+            def launch(*args):
+                seen.append(torch.cuda.current_device())
+                return fn(*args)
+            return launch
+
+    monkeypatch.setattr(gmin_scan, "_gmin_lib", lambda: _Proxy(real_k1))
+    monkeypatch.setattr(pq_gmin, "codes_lib", lambda: _Proxy(real_k2))
+    rng = np.random.default_rng(5)
+    b, ncols, d, m, c = 64, 1024, 128, 16, 256
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
+    store3 = torch.from_numpy(rng.standard_normal((16, ncols, d)).astype(np.float32)).to(dev)
+    bias = _dead_bias(rng, ncols, dev)
+    codes3 = torch.from_numpy(rng.integers(0, c, (16, ncols, m)).astype(np.uint8)).to(dev)
+    cb = torch.from_numpy(rng.standard_normal((m, c, d // m)).astype(np.float32)).to(
+        dev).to(torch.bfloat16)
+    with torch.cuda.device(card):
+        got1 = gmin_scan.group_min_scores(q, store3, bias, -2.0)
+        got2 = pq_gmin.pq_group_min_scores(q, codes3, bias, cb, -1.0)
+    torch.testing.assert_close(got1, gmin_scan.group_min_scores_reference(q, store3, bias, -2.0),
+                               rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(got2, pq_gmin.pq_group_min_scores_reference(q, codes3, bias, cb,
+                                                                           -1.0),
+                               rtol=1e-4, atol=1e-3)
+    assert seen == [dev.index, dev.index]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mesh_on_card_matches_cpu(card, tmp_path, dtype):
+    """The mesh index over four slabs on the card (one card named four
+    times) and over four CPU slabs: equal ids on tie-free data for K1 per
+    slab (B 16, slabs of 16384 rows), the chunked scan (B 1) and a masked
+    allowList, fused and staged; K1 launches once per slab."""
+    from weaviate_tpu_torch.index.mesh import MeshVectorIndex
+    from weaviate_tpu_torch.parallel.mesh_search import make_mesh
+
+    rng = np.random.default_rng(6)
+    vecs = rng.standard_normal((6000, 32)).astype(np.float32)
+    q = rng.standard_normal((16, 32)).astype(np.float32)
+    cfg = {"distance": "l2-squared", "storeDtype": dtype}
+    idx = {dev: MeshVectorIndex(vi.parse_and_validate_config("hnsw_tpu_mesh", cfg),
+                                str(tmp_path / dev), mesh=make_mesh(devices=[dev] * 4),
+                                initial_capacity_per_shard=16384)
+           for dev in ("cuda", "cpu")}
+    for ix in idx.values():
+        ix.add_batch(np.arange(6000), vecs)
+        ix.delete(*range(0, 90, 3))
+    for fused in (True, False):
+        gpu.set_fused_enabled(fused)
+        try:
+            before = gmin_scan.launches
+            for b, allow in ((16, None), (1, None), (16, Bitmap(np.arange(0, 6000, 2)))):
+                got = idx["cuda"].search_by_vectors(q[:b], 10, allow_list=allow)
+                want = idx["cpu"].search_by_vectors(q[:b], 10, allow_list=allow)
+                np.testing.assert_array_equal(got[0], want[0])
+                np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-4)
+            assert gmin_scan.launches == before + 8  # 4 slabs x (unfiltered, masked)
+        finally:
+            gpu.set_fused_enabled(None)

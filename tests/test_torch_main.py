@@ -118,16 +118,66 @@ def test_serving_chain_imports_no_jax_or_reference_module():
 
 
 @pytest.mark.parametrize("env, item", [
-    ({"TPU_DEVICE_MESH_SHARDS": "2"}, "item 10"),
     ({"ENABLE_MODULES": "text2vec-local"}, "item 14"),
     ({"CLUSTER_HOSTNAME": "node-1"}, "item 15"),
-], ids=["mesh", "modules", "cluster"])
+], ids=["modules", "cluster"])
 def test_app_refuses_what_the_port_does_not_serve_yet(tmp_path, env, item):
     from weaviate_tpu_torch.config import load_config
     from weaviate_tpu_torch.server import App
 
     with pytest.raises(ValueError, match=item):
         App(config=load_config(env), data_path=str(tmp_path), device="cpu")
+
+
+def test_app_accepts_mesh_shards_and_serves_a_mesh_class(tmp_path):
+    """TPU_DEVICE_MESH_SHARDS is accepted and reported in the config
+    digest, as the JAX App does (it drives nothing there either); a class
+    of vectorIndexType hnsw_tpu_mesh is served through the App, its
+    meshDevices slabs on the CPU, and answers nearVector as the JAX App
+    does."""
+    import uuid as uuidlib
+
+    import numpy as np
+
+    from weaviate_tpu.config import load_config as jax_load_config
+    from weaviate_tpu.entities.storobj import StorObj as JaxStorObj
+    from weaviate_tpu.server import App as JaxApp
+    from weaviate_tpu.usecases.traverser import GetParams as JaxGetParams
+    from weaviate_tpu_torch.config import load_config
+    from weaviate_tpu_torch.entities.storobj import StorObj
+    from weaviate_tpu_torch.index.mesh import MeshVectorIndex
+    from weaviate_tpu_torch.server import App
+    from weaviate_tpu_torch.usecases.traverser import GetParams
+
+    env = {"TPU_DEVICE_MESH_SHARDS": "2"}
+    cls = {"class": "Mv", "vectorIndexType": "hnsw_tpu_mesh",
+           "vectorIndexConfig": {"distance": "l2-squared", "meshDevices": 4},
+           "properties": [{"name": "tag", "dataType": ["text"]}]}
+    vecs = np.random.default_rng(3).standard_normal((300, 8)).astype(np.float32)
+    answers = []
+    for app_cls, cfg, obj_cls, params in (
+            (App, load_config(env), StorObj, GetParams),
+            (JaxApp, jax_load_config(env), JaxStorObj, JaxGetParams)):
+        kw = {"device": "cpu"} if app_cls is App else {}
+        app = app_cls(config=cfg, data_path=str(tmp_path / app_cls.__module__), **kw)
+        try:
+            knobs = app._config_fingerprint()["knobs"]
+            assert knobs["device_mesh_shards"] == 2
+            app.schema.add_class(dict(cls))
+            idx = app.db.get_index("Mv")
+            idx.put_batch([obj_cls(class_name="Mv", uuid=str(uuidlib.UUID(int=i + 1)),
+                                   properties={"tag": "t"}, vector=vecs[i])
+                           for i in range(300)])
+            vidx = next(iter(idx.shards.values())).vector_index
+            if app_cls is App:
+                assert isinstance(vidx, MeshVectorIndex) and vidx.n_dev == 4
+            res = app.traverser.get_class(params(
+                class_name="Mv", near_vector={"vector": vecs[7].tolist()}, limit=5))
+            answers.append([(r.obj.uuid, round(float(r.distance), 4)) for r in res])
+        finally:
+            app.shutdown()
+    assert answers[0][0][0] == str(uuidlib.UUID(int=8))
+    assert answers[0] == answers[1]
 
 
 def test_app_with_ivf_enabled_serves_probed_answers(tmp_path):

@@ -6,12 +6,12 @@ config_handler.go:73-99 (the Config struct) — the full env surface is listed
 in SURVEY.md Appendix A. Same variable names, same defaults; the device
 extensions (device mesh shape, store dtype) are additive.
 
-The port reads the env surface letter for letter. One knob names a part
-it does not serve yet, and the port's App refuses it (`server/app.py`):
-TPU_DEVICE_MESH_SHARDS > 1 (ROADMAP queue 1 item 10). The index reads
-the control plane's recall-guarded budgets (`serving/controller.py`) as
-the reference's does; without a plane installed each cap is its ladder's
-top bucket.
+The port reads the env surface letter for letter. TPU_DEVICE_MESH_SHARDS
+is reported in the App's config digest and drives nothing, as in the
+reference (the mesh is a class's `hnsw_tpu_mesh` index type). The index
+reads the control plane's recall-guarded budgets (`serving/controller.py`)
+as the reference's does; without a plane installed each cap is its
+ladder's top bucket.
 """
 
 from __future__ import annotations

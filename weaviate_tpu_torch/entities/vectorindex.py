@@ -108,7 +108,8 @@ class PQConfig:
 
 @dataclass
 class HnswUserConfig:
-    """UserConfig shared by "hnsw_tpu", "flat" and "noop" (config.go:52-66)."""
+    """UserConfig shared by "hnsw_tpu", "hnsw_tpu_mesh", "flat" and "noop"
+    (config.go:52-66)."""
 
     index_type: str = "hnsw_tpu"
     skip: bool = False
@@ -121,6 +122,7 @@ class HnswUserConfig:
     pq: PQConfig = field(default_factory=PQConfig)
     store_dtype: str = "float32"  # device store dtype: float32 | bfloat16
     exact_topk: bool = False  # skip the group-min fast scan: exact chunked scan
+    mesh_devices: int = 0  # hnsw_tpu_mesh: devices to shard over (0 = all)
 
     def IndexType(self) -> str:  # discriminator parity (config.go:69-71)
         return self.index_type
@@ -143,6 +145,7 @@ class HnswUserConfig:
             pq=PQConfig.from_dict(d.get("pq") or {}),
             store_dtype=d.get("storeDtype", "float32"),
             exact_topk=bool(d.get("exactTopK", False)),
+            mesh_devices=int(d.get("meshDevices", 0)),
         )
         cfg.validate()
         return cfg
@@ -228,9 +231,10 @@ def validate_config_update(old: HnswUserConfig, new: HnswUserConfig) -> None:
 
 
 # the index types this port serves (the JAX package's registry also holds
-# the mesh and native-graph types, which are not ported yet)
+# the native-graph type "hnsw", which is not ported yet)
 _PARSERS: dict[str, Callable[[Optional[dict]], HnswUserConfig]] = {
     "hnsw_tpu": lambda d: HnswUserConfig.from_dict(d, "hnsw_tpu"),
+    "hnsw_tpu_mesh": lambda d: HnswUserConfig.from_dict(d, "hnsw_tpu_mesh"),
     "flat": lambda d: HnswUserConfig.from_dict(d, "flat"),
     "noop": lambda d: HnswUserConfig.from_dict({**(d or {}), "skip": True}, "noop"),
 }

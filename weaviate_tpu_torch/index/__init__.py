@@ -1,8 +1,10 @@
 """Vector indexes behind the VectorIndex seam (reference
 adapters/repos/db/vector_index.go:23-40). Implementations in this port:
 
-- gpu.GpuVectorIndex  ("hnsw_tpu"/"flat"): device-resident batched kNN
-- noop.NoopIndex      ("noop"/skip=true)
+- gpu.GpuVectorIndex   ("hnsw_tpu"/"flat"): device-resident batched kNN
+- mesh.MeshVectorIndex ("hnsw_tpu_mesh"): the same, sharded row-wise over
+  a list of devices, one slab each
+- noop.NoopIndex       ("noop"/skip=true)
 """
 
 from weaviate_tpu_torch.index.interface import VectorIndex
@@ -12,7 +14,6 @@ __all__ = ["VectorIndex", "new_vector_index"]
 # index types of the JAX package that this port does not serve yet, and
 # the ROADMAP item that brings each
 _LATER = {
-    "hnsw_tpu_mesh": "the multi-device mesh index (ROADMAP queue 1, item 10)",
     "hnsw": "the native CPU graph engine (ROADMAP queue 1, item 16)",
 }
 
@@ -33,6 +34,11 @@ def new_vector_index(config, shard_path: str, shard_name: str = "", device=None,
 
         return GpuVectorIndex(config, shard_path, shard_name, device=device,
                               persist=persist, metrics=metrics, class_name=class_name)
+    if t == "hnsw_tpu_mesh":
+        from weaviate_tpu_torch.index.mesh import MeshVectorIndex
+
+        return MeshVectorIndex(config, shard_path, shard_name, device=device,
+                               persist=persist, metrics=metrics, class_name=class_name)
     if t in _LATER:
         raise ValueError(f"vectorIndexType {t!r} is not ported yet: {_LATER[t]}")
     raise ValueError(f"unknown vector index type {t!r}")

@@ -184,23 +184,38 @@ def group_min_scores(q: torch.Tensor, store3: torch.Tensor, bias2: torch.Tensor,
     plan = resident_plan(d, ag)
     if plan is None:
         raise no_plan_error(d)
-    out = torch.empty((b, ncols), dtype=torch.float32, device=q.device)
-    if b == 0 or ncols == 0:
-        return out
-    q_bf16 = query_scratch(q, plan)
-    qvec4 = d % 4 == 0 and q.data_ptr() % 16 == 0
-    lib = _gmin_lib()
-    if store3.dtype == torch.bfloat16:
-        launch, svec = lib.gmin_scan_bf16_launch, d % 8 == 0 and store3.data_ptr() % 16 == 0
-    else:
-        launch, svec = lib.gmin_scan_launch, d % 4 == 0 and store3.data_ptr() % 16 == 0
-    rc = launch(q.data_ptr(), store3.data_ptr(), bias2.data_ptr(), q_bf16.data_ptr(),
-                out.data_ptr(), b, ncols, d, ag, float(alpha), plan.scg, int(qvec4), int(svec),
-                torch.cuda.current_stream(q.device).cuda_stream)
+    out = launch_scan(q, store3, bias2, alpha, ag, plan)
+    launches += 1
+    return out
+
+
+def launch_scan(q: torch.Tensor, store3: torch.Tensor, bias2: torch.Tensor, alpha: float,
+                ag: int, plan: ResidentPlan) -> torch.Tensor:
+    """Launch K1 (its f32 or bf16 filler, by the store's dtype) on q's
+    stream -> [B, ncols] f32; raises if the launch fails. The C entry point
+    launches on the calling thread's current device and sets the kernel's
+    shared-memory attribute there, so the launch, and the query scratch
+    beside it, run under q's device (a slab on another card than the
+    current one gets its own)."""
+    b, d = q.shape
+    ncols = store3.shape[1]
+    with torch.cuda.device(q.device):
+        out = torch.empty((b, ncols), dtype=torch.float32, device=q.device)
+        if b == 0 or ncols == 0:
+            return out
+        q_bf16 = query_scratch(q, plan)
+        qvec4 = d % 4 == 0 and q.data_ptr() % 16 == 0
+        lib = _gmin_lib()
+        if store3.dtype == torch.bfloat16:
+            launch, svec = lib.gmin_scan_bf16_launch, d % 8 == 0 and store3.data_ptr() % 16 == 0
+        else:
+            launch, svec = lib.gmin_scan_launch, d % 4 == 0 and store3.data_ptr() % 16 == 0
+        rc = launch(q.data_ptr(), store3.data_ptr(), bias2.data_ptr(), q_bf16.data_ptr(),
+                    out.data_ptr(), b, ncols, d, ag, float(alpha), plan.scg, int(qvec4),
+                    int(svec), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise _kernels.launch_error("gmin_scan kernel launch failed", rc,
                                     lib.gmin_scan_error_string(rc).decode())
-    launches += 1
     return out
 
 

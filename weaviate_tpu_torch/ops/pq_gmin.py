@@ -132,21 +132,24 @@ def launch_codes(fn_name: str, q, codes3, bias2, codebook, alpha, active_g, b, d
     """Launch K2 or K3 on q's stream -> [B, ncols] f32; raises if the
     shape has no plan (the routers send such shapes elsewhere) or the
     launch fails. The kernel first rounds q into a zero-padded bf16
-    scratch, allocated here."""
+    scratch, allocated here. The C entry point launches on the calling
+    thread's current device, so the launch and the scratch run under q's
+    device (gmin_scan.launch_scan)."""
     ag = _live_slices(active_g, g)
     plan = codes_plan(d, ag)
     if plan is None:
         raise no_plan_error(d)
-    out = torch.empty((b, ncols), dtype=torch.float32, device=q.device)
-    if b == 0 or ncols == 0:
-        return out
-    q_bf16 = query_scratch(q, plan)
-    lib = codes_lib()
-    rc = getattr(lib, fn_name)(
-        q.data_ptr(), codes3.data_ptr(), bias2.data_ptr(), codebook.data_ptr(),
-        q_bf16.data_ptr(), out.data_ptr(), b, ncols, d, m, c, ag,
-        float(alpha), plan.scg, int(d % 4 == 0 and q.data_ptr() % 16 == 0),
-        int(codebook.data_ptr() % 16 == 0), torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        out = torch.empty((b, ncols), dtype=torch.float32, device=q.device)
+        if b == 0 or ncols == 0:
+            return out
+        q_bf16 = query_scratch(q, plan)
+        lib = codes_lib()
+        rc = getattr(lib, fn_name)(
+            q.data_ptr(), codes3.data_ptr(), bias2.data_ptr(), codebook.data_ptr(),
+            q_bf16.data_ptr(), out.data_ptr(), b, ncols, d, m, c, ag,
+            float(alpha), plan.scg, int(d % 4 == 0 and q.data_ptr() % 16 == 0),
+            int(codebook.data_ptr() % 16 == 0), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise _kernels.launch_error(f"{fn_name} failed", rc,
                                     lib.pq_gmin_error_string(rc).decode())

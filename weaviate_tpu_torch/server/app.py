@@ -14,11 +14,13 @@ The port's App differs from the JAX package's in three ways:
 - the fused-dispatch and IVF toggles go to the port's index
   (`index/gpu.py`);
 - it refuses, with a ValueError naming the ROADMAP item that brings each,
-  what the port does not serve yet: TPU_DEVICE_MESH_SHARDS > 1 (queue 1
-  item 10), ENABLE_MODULES or an injected module provider (item 14), and
-  a cluster config, CLUSTER_HOSTNAME or CLUSTER_JOIN (item 15). With none
-  of them set the reference App has no modules and no cluster either, so
-  the default App is whole.
+  what the port does not serve yet: ENABLE_MODULES or an injected module
+  provider (queue 1 item 14), and a cluster config, CLUSTER_HOSTNAME or
+  CLUSTER_JOIN (item 15). With neither set the reference App has no
+  modules and no cluster either, so the default App is whole.
+TPU_DEVICE_MESH_SHARDS is accepted and reported in the config digest, as
+the reference does; it drives nothing there either. The multi-device mesh
+is a class's `vectorIndexType: "hnsw_tpu_mesh"` (`index/mesh.py`).
 """
 
 from __future__ import annotations
@@ -42,9 +44,6 @@ from weaviate_tpu_torch.version import __version__ as VERSION
 def _refuse_unported(config: Config, modules) -> None:
     """Raise a ValueError naming the ROADMAP item that brings whatever the
     config asks for that the port does not serve yet."""
-    if config.device_mesh_shards > 1:
-        raise ValueError("TPU_DEVICE_MESH_SHARDS > 1: the multi-device mesh "
-                         "is not ported yet: ROADMAP queue 1 item 10")
     if modules is not None or config.enable_modules:
         raise ValueError("ENABLE_MODULES: the vectorizer and reader modules "
                          "(modules/) are not ported yet: ROADMAP queue 1 item 14")

@@ -199,14 +199,17 @@ def nt_scores(q: torch.Tensor, store3t: torch.Tensor, bias2: torch.Tensor,
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, store3t {tuple(store3t.shape)}, "
                          f"bias2 {tuple(bias2.shape)} (at most {G} slices)")
     plan = layout_plan(d, g)
-    out = torch.empty((b, ncols), dtype=torch.float32, device=q.device)
-    if b == 0 or ncols == 0:
-        return out
-    lib = _layouts_lib()
-    _launch(lib.nt_scores_launch, q.data_ptr(), store3t.data_ptr(), bias2.data_ptr(),
-            gmin_scan.query_scratch(q, plan).data_ptr(), out.data_ptr(), b, ncols, d, g,
-            float(alpha), plan.scg, int(d % 4 == 0 and q.data_ptr() % 16 == 0),
-            int(store3t.data_ptr() % 16 == 0), torch.cuda.current_stream(q.device).cuda_stream)
+    # the C entry point launches on the current device: enter q's
+    with torch.cuda.device(q.device):
+        out = torch.empty((b, ncols), dtype=torch.float32, device=q.device)
+        if b == 0 or ncols == 0:
+            return out
+        lib = _layouts_lib()
+        _launch(lib.nt_scores_launch, q.data_ptr(), store3t.data_ptr(), bias2.data_ptr(),
+                gmin_scan.query_scratch(q, plan).data_ptr(), out.data_ptr(), b, ncols, d, g,
+                float(alpha), plan.scg, int(d % 4 == 0 and q.data_ptr() % 16 == 0),
+                int(store3t.data_ptr() % 16 == 0),
+                torch.cuda.current_stream(q.device).cuda_stream)
     nt_launches += 1
     return out
 
@@ -231,14 +234,16 @@ def c4_scores(q: torch.Tensor, store4: torch.Tensor, bias4: torch.Tensor, alpha:
                          f"bias4 {tuple(bias4.shape)}, gc {gc}, scg {scg} (scg must divide "
                          f"ncols, at most {G} groups)")
     plan = layout_plan(d, nslice * gc)
-    out = torch.empty((b, ncols), dtype=torch.float32, device=q.device)
-    if b == 0 or ncols == 0:
-        return out
-    lib = _layouts_lib()
-    _launch(lib.c4_scores_launch, q.data_ptr(), store4.data_ptr(), bias4.data_ptr(),
-            gmin_scan.query_scratch(q, plan).data_ptr(), out.data_ptr(), b, ncols, d, nslice,
-            gc, scg, float(alpha), plan.scg, int(d % 4 == 0 and q.data_ptr() % 16 == 0),
-            int(store4.data_ptr() % 16 == 0), torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        out = torch.empty((b, ncols), dtype=torch.float32, device=q.device)
+        if b == 0 or ncols == 0:
+            return out
+        lib = _layouts_lib()
+        _launch(lib.c4_scores_launch, q.data_ptr(), store4.data_ptr(), bias4.data_ptr(),
+                gmin_scan.query_scratch(q, plan).data_ptr(), out.data_ptr(), b, ncols, d,
+                nslice, gc, scg, float(alpha), plan.scg,
+                int(d % 4 == 0 and q.data_ptr() % 16 == 0), int(store4.data_ptr() % 16 == 0),
+                torch.cuda.current_stream(q.device).cuda_stream)
     c4_launches[gc] = c4_launches.get(gc, 0) + 1
     return out
 
