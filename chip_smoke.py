@@ -3,8 +3,9 @@
 the headline scale and at the PQ configuration's, run its stage profiler
 at full width, drive its Shard and its App (REST, GraphQL, gRPC, the
 coalescer) at 2^18 objects, its IVF scan plane on the headline's data,
-its device BM25 engine on passage-length documents and its mesh index
-over four slabs of the card, and check them.
+its device BM25 engine on passage-length documents, its mesh index over
+four slabs of the card and its module system (text2vec-local, t-SNE,
+backups) behind the App, and check them.
 
     python3 chip_smoke.py [--seed 7]
 
@@ -155,9 +156,28 @@ H. the mesh index (`hnsw_tpu_mesh`, index/mesh.py over
    dispatch, answers against B2's single-device ones (tie-aware >= 0.99),
    p50s beside B2's, a profiled batch.
 
+I. the module system: an App on the card with ENABLE_MODULES=
+   text2vec-local,ref2vec-centroid,backup-filesystem and the coalescer
+   on; a `text2vec-local` class (D 256, cosine, one text property) of
+   I_N texts of 8-16 words, Zipf(1.1) over a 30,000-word vocabulary
+   (seed + 11), imported without vectors through REST `POST
+   /v1/batch/objects` in batches of 1024 (the module vectorizes them);
+   64 read-back vectors bit-equal to a fresh `LocalTextVectorizer`; K1
+   held against its plain version on the App's store; single nearText
+   requests (p50); its main path (K1's count set to 0 just before, read
+   just after, > 0): 256 nearText queries as one `/v1/graphql/batch`, 5
+   runs, recall@10 >= 0.99 against exact cosine over the store; one
+   moveTo/moveAwayFrom query against its exact answer; featureProjection
+   at limit 100 through GraphQL: its t-SNE ran on the card, the card's
+   layout at 20 iterations within 1e-4 x spread of the CPU's and equal
+   to a second card run bit for bit; `tsne_project` timed on the card
+   and the CPU at n 100 and 1000, 100 and 2000 iterations, and profiled
+   (its launches an iteration); a filesystem backup of the class, the
+   class deleted and restored, 16 nearText answers equal to before.
+
     python3 chip_smoke.py --only F,G
 
-runs only the named workloads (a subset of A,B,A16,C,D,E,F,G,H) and prints
+runs only the named workloads (a subset of A,B,A16,C,D,E,F,G,H,I) and prints
 no result lines: a quick card check of one part.
 
     python3 chip_smoke.py --busy-share CHECKOUT
@@ -188,11 +208,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    profiler modes with their launch counts (each count set to 0 just
    before the modes run and read just after), K1's time on the same store
    and shape, then the layout kernels' timings and their ratio to it;
-6. A-bf16, then D, then E, then F, then G, then H (each names itself on
-   stderr);
+6. A-bf16, then D, then E, then F, then G, then H, then I (each names
+   itself on stderr);
 7. the card line, one JSON line of per-kernel numbers (K1's launches and
-   max abs error include D's, E's and H1's, K1-bf16's the A-bf16 run's
-   and H2's, K2's H3's), the result line.
+   max abs error include D's, E's, H1's and I's, K1-bf16's the A-bf16
+   run's and H2's, K2's H3's), the result line.
 
 Each phase also names itself on stderr as it starts. A watchdog stops the
 run at WATCHDOG_S seconds: it prints every thread's Python stack to stderr
@@ -267,8 +287,13 @@ G_ALLOW_Q, G_BATCH_REPS = 64, 5  # queries per allowList; timed runs of the batc
 H_SLABS = 4               # workload H: slabs of the mesh (one card named H_SLABS times)
 H_B, H_REPS = 256, 7      # the small batch of A, B2 and H, and its timed runs
 H_RECALL_BAR, H_BF16_BAR = 0.99, 0.98  # tests/test_recall_fixture.py's multi-device bar
+I_CLASS, I_N, I_IMPORT = "Passage", 1 << 18, 1024  # workload I: objects, per REST batch
+I_VOCAB, I_ZIPF = 30000, 1.1  # words of the texts' vocabulary, Zipf exponent
+I_Q, I_ONE_REQS, I_REPS = 256, 32, 5  # nearText batch, single requests, timed batches
+I_READBACK = 64           # vectors read back and held against a fresh vectorizer
+I_TSNE = ((100, 100), (100, 2000), (1000, 100), (1000, 2000))  # t-SNE timings: n, iterations
 BUSY_REPS = 3             # profiled batches per workload of --busy-share
-WATCHDOG_S = 1140  # seconds: a run past this has stalled (a whole run takes ~900 s)
+WATCHDOG_S = 1140  # seconds: a run past this has stalled (a whole run takes ~930 s)
 T_START = time.perf_counter()
 WANTED: set = set()  # the workloads this run drives (main sets it)
 SHARED: dict = {}    # what a workload hands a later one: A's and B2's p50s, B2's answers and files
@@ -2664,6 +2689,275 @@ def mesh_codes(dev, card, seed, mesh) -> dict:
     return {"launches": launches, "max_abs_err": err}
 
 
+# -- workload I: the module system on the card --------------------------------------
+
+def zipf_texts(rng, count, lo, hi):
+    """count texts of lo..hi words drawn Zipf (s = I_ZIPF) from the
+    I_VOCAB-word vocabulary w0, w1, ..."""
+    vocab = np.array([f"w{i}" for i in range(I_VOCAB)])
+    ranks = np.arange(1, I_VOCAB + 1, dtype=np.float64) ** -I_ZIPF
+    lens = rng.integers(lo, hi + 1, count)
+    drawn = vocab[rng.choice(I_VOCAB, size=int(lens.sum()), p=ranks / ranks.sum())]
+    cuts = np.concatenate([[0], np.cumsum(lens)])
+    return [" ".join(drawn[cuts[i]:cuts[i + 1]]) for i in range(count)]
+
+
+def gql_near_text(concepts, limit=K, extra="", additional="id distance") -> str:
+    return ("{ Get { %s(nearText: {concepts: %s%s}, limit: %d) { _additional { %s } } } }"
+            % (I_CLASS, json.dumps(concepts), extra, limit, additional))
+
+
+def near_text_rows(reply) -> tuple[list[int], list[float]]:
+    """A nearText Get reply -> (import indexes, distances); an error raises."""
+    if reply.get("errors"):
+        raise AssertionError(f"I GraphQL: {reply['errors']}")
+    rows = reply["data"]["Get"][I_CLASS]
+    return ([uuidlib.UUID(r["_additional"]["id"]).int - 1 for r in rows],
+            [float(r["_additional"]["distance"]) for r in rows])
+
+
+def module_workload(dev, card, seed) -> dict:
+    """The module system on the card: an App with text2vec-local,
+    ref2vec-centroid and backup-filesystem and the coalescer on; I_N texts
+    vectorized at import over REST; nearText through /v1/graphql/batch
+    (K1), featureProjection's t-SNE on the card, a filesystem backup and
+    restore. -> K1's launches on the main path and its max abs error on
+    the App's store."""
+    from weaviate_tpu_torch.config import load_config
+    from weaviate_tpu_torch.entities.storobj import StorObj
+    from weaviate_tpu_torch.modules import Provider
+    from weaviate_tpu_torch.modules.text2vec_local import LocalTextVectorizer
+    from weaviate_tpu_torch.ops import gmin_scan, tsne
+    from weaviate_tpu_torch.server import App, RestServer
+
+    rng = np.random.default_rng(seed + 11)
+    t0 = time.perf_counter()
+    texts = zipf_texts(rng, I_N, 8, 16)
+    q_texts = zipf_texts(rng, I_Q, 2, 6)
+    log(f"I data: {I_N} texts of 8-16 words, {I_Q} queries of 2-6, Zipf({I_ZIPF}) over "
+        f"{I_VOCAB} words (seed + 11), in {time.perf_counter() - t0:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_i_")
+    app = srv = None
+    try:
+        cfg = load_config({**os.environ, "QUERY_COALESCER_ENABLED": "true",
+                           "ENABLE_MODULES": "text2vec-local,ref2vec-centroid,backup-filesystem",
+                           "BACKUP_FILESYSTEM_PATH": os.path.join(tmp, "backups")})
+        app = App(config=cfg, data_path=os.path.join(tmp, "data"), device=dev)
+        if app.modules.get("text2vec-local").device != dev:
+            raise AssertionError(f"I: the vectorizer's device is "
+                                 f"{app.modules.get('text2vec-local').device}, not {dev}")
+        srv = RestServer(app, host="127.0.0.1", port=0)
+        srv.start()
+        port = srv.port
+        st, _ = http(port, "POST", "/v1/schema", {
+            "class": I_CLASS, "vectorizer": "text2vec-local", "vectorIndexType": "hnsw_tpu",
+            "vectorIndexConfig": {"distance": "cosine"},
+            "properties": [{"name": "body", "dataType": ["text"]}]})
+        if st != 200:
+            raise AssertionError(f"I POST /v1/schema: {st}")
+        t0 = time.perf_counter()
+        for s in range(0, I_N, I_IMPORT):
+            st, res = http(port, "POST", "/v1/batch/objects", {"objects": [
+                {"class": I_CLASS, "id": str(uuidlib.UUID(int=i + 1)),
+                 "properties": {"body": texts[i]}} for i in range(s, min(s + I_IMPORT, I_N))]})
+            if st != 200 or any("errors" in r["result"] for r in res):
+                raise AssertionError(f"I POST /v1/batch/objects at {s}: {st}")
+        rest_s = time.perf_counter() - t0
+        shard = app.db.get_index(I_CLASS).single_local_shard()
+        shard.flush()
+        shard.store.flush_memtables()
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        if shard.object_count() != I_N:
+            raise AssertionError(f"I import: {shard.object_count()} objects")
+        log(f"[{card}] I import: {I_N} objects through REST POST /v1/batch/objects in batches "
+            f"of {I_IMPORT}, vectorized at import: {rest_s:.1f} s; with the flush to segments "
+            f"{import_s:.1f} s, {I_N / import_s:.0f} objects/s; capacity "
+            f"{shard.vector_index.capacity}")
+
+        # 64 read-back vectors against a fresh vectorizer, bit for bit
+        fresh = LocalTextVectorizer(device=dev)
+        cd = app.schema.get_class(I_CLASS)
+        for i in rng.choice(I_N, I_READBACK, replace=False):
+            st, got = http(port, "GET", f"/v1/objects/{I_CLASS}/{uuidlib.UUID(int=int(i) + 1)}"
+                                        "?include=vector")
+            want = fresh.vectorize_object(cd, StorObj(class_name=I_CLASS, uuid="",
+                                                      properties={"body": texts[i]}), {})
+            if st != 200 or not np.array_equal(np.asarray(got["vector"], np.float32), want):
+                raise AssertionError(f"I read-back of object {i}: not the fresh vectorizer's")
+        log(f"I read-back: {I_READBACK} vectors bit-equal to a fresh LocalTextVectorizer")
+
+        # exact cosine ground truth over the index's own store (rows are
+        # normalized at insert; the import filled slots in doc-id order)
+        snap = shard.vector_index._read_snapshot()
+        if not np.array_equal(snap.slot_to_doc[:I_N], np.arange(I_N)):
+            raise AssertionError("I: the store's slots are not in import order")
+        store = snap.store[:I_N]
+        q_vecs = fresh.vectorize_text(q_texts)
+        gt = exact_topk(torch.from_numpy(q_vecs).to(dev), store, K, "dot")
+        max_err = check_k1_on_shard("I", "the module App", shard, q_vecs, dev, seed + 12,
+                                    (16, 64, I_Q))
+
+        # one query a request (the coalescer's lanes of one row take the
+        # chunked scan), then the batch: the main path
+        lat = []
+        for t in q_texts[:I_ONE_REQS]:
+            t1 = time.perf_counter()
+            near_text_rows(http(port, "POST", "/v1/graphql", {"query": gql_near_text([t])})[1])
+            lat.append(time.perf_counter() - t1)
+        p50_one = float(np.median(lat))
+        body = [{"query": gql_near_text([t])} for t in q_texts]
+        st0 = app.coalescer.stats()
+        phase("I main path")
+        gmin_scan.launches = 0
+        lat = []
+        for _ in range(I_REPS):
+            t1 = time.perf_counter()
+            st, rep = http(port, "POST", "/v1/graphql/batch", body)
+            lat.append(time.perf_counter() - t1)
+        launches = gmin_scan.launches
+        rows = [near_text_rows(r) for r in rep]
+        r_batch = recall_at_k(ids_matrix(rows), gt)
+        p50_batch = float(np.median(lat))
+        st1 = app.coalescer.stats()
+        d_disp = st1["dispatches"] - st0["dispatches"]
+        log(f"[{card}] I nearText: one query a request p50 {p50_one * 1e3:.2f} ms "
+            f"({I_ONE_REQS} requests); /v1/graphql/batch of {I_Q} with the coalescer "
+            f"{['%.1f ms' % (t * 1e3) for t in lat]}, p50 {p50_batch * 1e3:.2f} ms; recall@10 "
+            f"{r_batch:.4f} against exact cosine over the store; {d_disp} lanes, mean fill "
+            f"{(st1['rows'] - st0['rows']) / max(d_disp, 1):.1f} rows; K1 launches {launches}")
+        if r_batch < 0.99 or launches == 0:
+            raise AssertionError(f"I nearText batch: recall {r_batch:.4f}, K1 launches {launches}")
+
+        # moveTo / moveAwayFrom against its exact answer
+        steer = {"concepts": [q_texts[0]], "moveTo": {"concepts": [q_texts[1]], "force": 0.5},
+                 "moveAwayFrom": {"concepts": [q_texts[2]], "force": 0.3}}
+        extra = (', moveTo: {concepts: %s, force: 0.5}, moveAwayFrom: {concepts: %s, '
+                 'force: 0.3}' % (json.dumps([q_texts[1]]), json.dumps([q_texts[2]])))
+        ids_m, d_m = near_text_rows(http(port, "POST", "/v1/graphql", {
+            "query": gql_near_text([q_texts[0]], extra=extra)})[1])
+        prov = Provider(device=dev)
+        prov.register(fresh)
+        sv = torch.from_numpy(prov.vectorize_query(cd, steer)).to(dev)
+        sv = sv / sv.norm()
+        exact_d = 1.0 - store @ sv
+        kth = float(torch.topk(exact_d, K, largest=False).values[-1])
+        got_d = exact_d[torch.tensor(ids_m, device=dev)].cpu().numpy()
+        np.testing.assert_allclose(d_m, got_d, rtol=1e-5, atol=1e-5)
+        if len(ids_m) != K or float(max(got_d)) > kth + 1e-5:
+            raise AssertionError(f"I moveTo/moveAwayFrom: {ids_m} past the exact 10th {kth}")
+        log(f"I moveTo/moveAwayFrom: the {K} answers are the exact top-{K} (10th distance "
+            f"{kth:.6f}), their distances the exact ones within rtol 1e-5")
+
+        # featureProjection at limit 100: t-SNE on the card
+        seen = []
+        descend = tsne._descend
+
+        def spy(p_, y0, iterations, lr):
+            seen.append((p_.device.type, int(iterations), int(p_.shape[0])))
+            return descend(p_, y0, iterations, lr)
+
+        tsne._descend = spy
+        try:
+            q_fp = gql_near_text([q_texts[3]], limit=100, additional=(
+                "id vector featureProjection(dimensions: 2, iterations: 20) { vector }"))
+            rows_fp = http(port, "POST", "/v1/graphql", {"query": q_fp})[1]["data"]["Get"][I_CLASS]
+            lat = []
+            q_def = gql_near_text([q_texts[3]], limit=100,
+                                  additional="featureProjection { vector }")
+            for _ in range(3):
+                t1 = time.perf_counter()
+                rep = http(port, "POST", "/v1/graphql", {"query": q_def})[1]
+                lat.append(time.perf_counter() - t1)
+                if rep.get("errors"):
+                    raise AssertionError(f"I featureProjection: {rep['errors']}")
+        finally:
+            tsne._descend = descend
+        if seen != [(dev.type, it, 100) for it in (20, 100, 100, 100)]:
+            raise AssertionError(f"I featureProjection ran as {seen}, not on {dev.type}")
+        fp_vecs = np.array([r["_additional"]["vector"] for r in rows_fp], np.float32)
+        fp_card = np.array([r["_additional"]["featureProjection"]["vector"] for r in rows_fp],
+                           np.float32)
+        again = tsne.tsne_project(fp_vecs, iterations=20, device=dev)
+        on_cpu = tsne.tsne_project(fp_vecs, iterations=20, device="cpu")
+        spread = float(np.abs(on_cpu).max())
+        gap = float(np.abs(again - on_cpu).max())
+        log(f"I featureProjection at limit 100 through GraphQL: ran on {seen[0][0]} "
+            f"({len(seen)} projections of 100 rows); 20 iterations: two card runs bit-equal "
+            f"{np.array_equal(again, fp_card)}, card vs CPU max abs {gap:.3e} = "
+            f"{gap / spread:.2e} x spread (bar 1e-4); default 100 iterations, one request "
+            f"p50 {float(np.median(lat)) * 1e3:.1f} ms")
+        if not np.array_equal(again, fp_card) or gap > 1e-4 * spread:
+            raise AssertionError(f"I t-SNE: card runs differ or card vs CPU {gap / spread:.2e}")
+
+        # t-SNE's times on the card and the CPU, and its launches
+        sample = store[torch.from_numpy(rng.choice(I_N, 1000, replace=False)).to(dev)]
+        sample = sample.cpu().numpy()
+        for n, iters in I_TSNE:
+            x = sample[:n]
+            t1 = time.perf_counter()
+            tsne._affinities(x, float(min(5.0, max(1.0, (n - 1) / 3.0))))
+            aff_ms = (time.perf_counter() - t1) * 1e3
+            card_ms = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                tsne.tsne_project(x, iterations=iters, device=dev)
+                card_ms.append((time.perf_counter() - t1) * 1e3)
+            t1 = time.perf_counter()
+            tsne.tsne_project(x, iterations=iters, device="cpu")
+            cpu_ms = (time.perf_counter() - t1) * 1e3
+            log(f"[{card}] I tsne_project n {n}, {iters} iterations: card "
+                f"{['%.1f' % t for t in card_ms]} ms (p50 {float(np.median(card_ms)):.1f}), "
+                f"CPU ({torch.get_num_threads()} threads) {cpu_ms:.1f} ms; of each, the host "
+                f"affinities {aff_ms:.1f} ms")
+        for n in (100, 1000):
+            wall_ms, kernels = profile_batch(
+                lambda: tsne.tsne_project(sample[:n], iterations=100, device=dev))
+            dev_ms = sum(ms for _, ms, _ in kernels)
+            count = sum(c for _, _, c in kernels)
+            log(f"[{card}] I t-SNE profile n {n}, 100 iterations: wall {wall_ms:.1f} ms, device "
+                f"kernels {dev_ms:.2f} ms ({dev_ms / wall_ms:.1%} busy), {count} kernel "
+                f"launches ({count / 100:.1f} an iteration)")
+            for key, ms, c in kernels[:5]:
+                log(f"  {ms:8.3f} ms  x{c:<4d} {key[:100]}")
+
+        # backup, delete, restore: the class answers as before
+        want = [near_text_rows(http(port, "POST", "/v1/graphql",
+                                    {"query": gql_near_text([t])})[1]) for t in q_texts[:16]]
+        t1 = time.perf_counter()
+        st, out = http(port, "POST", "/v1/backups/filesystem", {"id": "i-backup",
+                                                                "include": [I_CLASS]})
+        meta = app.backup_scheduler.wait("i-backup", timeout=600)
+        backup_s = time.perf_counter() - t1
+        if st != 200 or meta["status"] != "SUCCESS":
+            raise AssertionError(f"I backup: {st} {meta}")
+        del snap, store, shard, sample
+        torch.cuda.empty_cache()
+        http(port, "DELETE", f"/v1/schema/{I_CLASS}")
+        t1 = time.perf_counter()
+        st, out = http(port, "POST", "/v1/backups/filesystem/i-backup/restore", {})
+        meta = app.backup_scheduler.wait("i-backup", restore=True, timeout=600)
+        restore_s = time.perf_counter() - t1
+        if st != 200 or meta["status"] != "SUCCESS":
+            raise AssertionError(f"I restore: {st} {meta}")
+        for i, t in enumerate(q_texts[:16]):
+            ids, d = near_text_rows(http(port, "POST", "/v1/graphql",
+                                         {"query": gql_near_text([t])})[1])
+            if ids != want[i][0]:
+                raise AssertionError(f"I restored query {i}: {ids} / before {want[i][0]}")
+            np.testing.assert_allclose(d, want[i][1], rtol=1e-5)
+        log(f"[{card}] I backup-filesystem of {I_N} objects {backup_s:.1f} s; class deleted; "
+            f"restore {restore_s:.1f} s; 16 nearText answers equal before and after")
+    finally:
+        if srv is not None:
+            srv.stop()
+        if app is not None:
+            app.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": max_err}
+
+
 def busy_share(card, seed) -> dict:
     """A's and B1's sync p50 and device-busy share alone (`--busy-share`):
     the same data and configurations as workloads A and B1, through only
@@ -2820,7 +3114,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--only", metavar="LIST",
                     help="run only these workloads (a comma-separated subset of "
-                         "A,B,A16,C,D,E,F,G,H) and print no result lines")
+                         "A,B,A16,C,D,E,F,G,H,I) and print no result lines")
     ap.add_argument("--busy-share", metavar="CHECKOUT",
                     help="run only A's and B1's sync p50 and busy share (BUSY_REPS "
                          "profiled batches each), with weaviate_tpu_torch imported from CHECKOUT, a "
@@ -2869,7 +3163,7 @@ def main() -> int:
     # 3-6. the workloads
     runs = (("A", headline), ("B", pq_workload), ("A16", headline_bf16), ("C", profiler_phase),
             ("D", shard_workload), ("E", app_workload), ("F", ivf_workload),
-            ("G", bm25_workload), ("H", mesh_workload))
+            ("G", bm25_workload), ("H", mesh_workload), ("I", module_workload))
     WANTED.update(args.only.split(",") if args.only else (key for key, _ in runs))
     res = {}
     try:
@@ -2887,14 +3181,15 @@ def main() -> int:
         faulthandler.cancel_dump_traceback_later()
         log(f"workloads {args.only} done")
         return 0
-    k1_f32, pq_rows, a16, layout_rows, d_row, e_row, h = (
-        res[key] for key in ("A", "B", "A16", "C", "D", "E", "H"))
+    k1_f32, pq_rows, a16, layout_rows, d_row, e_row, h, i_row = (
+        res[key] for key in ("A", "B", "A16", "C", "D", "E", "H", "I"))
 
-    # 6. result lines: K1's launches include D's, E's and H1's (the Shard's,
-    # the App's and the mesh's main paths), K1-bf16's the bf16-store runs'
-    # (A-bf16, H2), K2's the mesh's codes tier (H3)
+    # 6. result lines: K1's launches include D's, E's, H1's and I's (the
+    # Shard's, the App's, the mesh's and the module App's main paths),
+    # K1-bf16's the bf16-store runs' (A-bf16, H2), K2's the mesh's codes
+    # tier (H3)
     k1_bf16, k2 = pq_rows[0], pq_rows[1]
-    for row, extra in ((k1_f32, d_row), (k1_f32, e_row), (k1_f32, h["k1"]),
+    for row, extra in ((k1_f32, d_row), (k1_f32, e_row), (k1_f32, h["k1"]), (k1_f32, i_row),
                        (k1_bf16, a16), (k1_bf16, h["k1_bf16"]), (k2, h["k2"])):
         row["launches"] += extra["launches"]
         row["max_abs_err"] = max(row["max_abs_err"], extra["max_abs_err"])

@@ -107,7 +107,16 @@ def test_serving_chain_imports_no_jax_or_reference_module():
             "weaviate_tpu_torch.serving.coalescer, weaviate_tpu_torch.serving.controller, "
             "weaviate_tpu_torch.monitoring.profiling, weaviate_tpu_torch.graphql, "
             "weaviate_tpu_torch.usecases.backup, weaviate_tpu_torch.usecases.classification, "
-            "weaviate_tpu_torch.auth.oidc\n"
+            "weaviate_tpu_torch.auth.oidc, weaviate_tpu_torch.modules, "
+            "weaviate_tpu_torch.modules.backup_cloud, weaviate_tpu_torch.modules.backup_fs, "
+            "weaviate_tpu_torch.modules.explain, weaviate_tpu_torch.modules.interface, "
+            "weaviate_tpu_torch.modules.media, weaviate_tpu_torch.modules.provider, "
+            "weaviate_tpu_torch.modules.readers, weaviate_tpu_torch.modules.ref2vec_centroid, "
+            "weaviate_tpu_torch.modules.sidecar, "
+            "weaviate_tpu_torch.modules.text2vec_contextionary, "
+            "weaviate_tpu_torch.modules.contextionary_pb2, "
+            "weaviate_tpu_torch.modules.text2vec_http, "
+            "weaviate_tpu_torch.modules.text2vec_local, weaviate_tpu_torch.ops.tsne\n"
             "bad = sorted(m for m in set(sys.modules) - before if m.startswith('jax') "
             "or m.split('.')[0] == 'weaviate_tpu')\n"
             "print(','.join(bad))")
@@ -118,15 +127,41 @@ def test_serving_chain_imports_no_jax_or_reference_module():
 
 
 @pytest.mark.parametrize("env, item", [
-    ({"ENABLE_MODULES": "text2vec-local"}, "item 14"),
     ({"CLUSTER_HOSTNAME": "node-1"}, "item 15"),
-], ids=["modules", "cluster"])
+], ids=["cluster"])
 def test_app_refuses_what_the_port_does_not_serve_yet(tmp_path, env, item):
     from weaviate_tpu_torch.config import load_config
     from weaviate_tpu_torch.server import App
 
     with pytest.raises(ValueError, match=item):
         App(config=load_config(env), data_path=str(tmp_path), device="cpu")
+
+
+def test_app_serves_enable_modules(tmp_path):
+    """ENABLE_MODULES builds the port's provider on the App's device:
+    /v1/meta lists the module, and a class may name it as its
+    vectorizer."""
+    from weaviate_tpu_torch.config import load_config
+    from weaviate_tpu_torch.server import App, RestServer
+
+    app = App(config=load_config({"ENABLE_MODULES": "text2vec-local"}),
+              data_path=str(tmp_path), device="cpu")
+    srv = RestServer(app, port=0)
+    srv.start()
+    try:
+        assert app.modules.device.type == "cpu"
+        assert app.modules.get("text2vec-local").device.type == "cpu"
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/v1/meta", timeout=30) as r:
+            meta = json.loads(r.read())
+        assert meta["modules"]["text2vec-local"]["dimensions"] == 256
+        app.schema.add_class({"class": "Doc", "vectorizer": "text2vec-local",
+                              "properties": [{"name": "body", "dataType": ["text"]}]})
+        with pytest.raises(ValueError, match="not an enabled module"):
+            app.schema.add_class({"class": "Bad", "vectorizer": "text2vec-typo",
+                                  "properties": [{"name": "t", "dataType": ["text"]}]})
+    finally:
+        srv.stop()
+        app.shutdown()
 
 
 def test_app_accepts_mesh_shards_and_serves_a_mesh_class(tmp_path):
@@ -254,3 +289,31 @@ def test_both_packages_sigterm_teardowns_chain_in_either_order(monkeypatch, orde
         assert m.install_trace_teardown() is True
     signal.getsignal(signal.SIGTERM)(signal.SIGTERM, None)
     assert ran == [mods[1].__name__.split(".")[0], mods[0].__name__.split(".")[0], "process"]
+
+
+def test_app_hands_its_device_to_an_injected_provider(tmp_path):
+    """A provider built without a device (as the reference's tests inject
+    one) takes the App's: featureProjection's t-SNE then runs on the CPU
+    here instead of asking for a card."""
+    from weaviate_tpu_torch.config import Config
+    from weaviate_tpu_torch.modules import Provider
+    from weaviate_tpu_torch.modules.text2vec_local import LocalTextVectorizer
+    from weaviate_tpu_torch.server import App
+
+    provider = Provider()
+    provider.register(LocalTextVectorizer())
+    app = App(config=Config(), data_path=str(tmp_path), modules=provider, device="cpu")
+    try:
+        assert provider.get("text2vec-local").device.type == "cpu"
+        app.schema.add_class({"class": "Doc", "vectorizer": "text2vec-local",
+                              "vectorIndexConfig": {"distance": "cosine"},
+                              "properties": [{"name": "body", "dataType": ["text"]}]})
+        for body in ("quantum qubits", "quantum physics", "bread flour", "bread oven"):
+            app.objects.add({"class": "Doc", "properties": {"body": body}})
+        res = app.graphql.execute('{ Get { Doc(nearText: {concepts: ["quantum"]}, limit: 4) '
+                                  '{ _additional { featureProjection { vector } } } } }')
+        assert "errors" not in res, res
+        assert all(len(r["_additional"]["featureProjection"]["vector"]) == 2
+                   for r in res["data"]["Get"]["Doc"])
+    finally:
+        app.shutdown()

@@ -7,17 +7,18 @@ config parser injected), objects/batch managers, traverser/explorer,
 aggregator, GraphQL executor, auth, metrics. The REST/gRPC layers only ever
 see this object.
 
-The port's App differs from the JAX package's in three ways:
+The port's App differs from the JAX package's in four ways:
 - a `device` keyword, passed to the DB and from there to every Shard's
   index; None (the default) is the CUDA card, and the App raises at once
   when torch sees none unless the caller passes device="cpu";
+- the module provider (ENABLE_MODULES, or one the caller injects) gets the
+  same device, where featureProjection's t-SNE runs;
 - the fused-dispatch and IVF toggles go to the port's index
   (`index/gpu.py`);
-- it refuses, with a ValueError naming the ROADMAP item that brings each,
-  what the port does not serve yet: ENABLE_MODULES or an injected module
-  provider (queue 1 item 14), and a cluster config, CLUSTER_HOSTNAME or
-  CLUSTER_JOIN (item 15). With neither set the reference App has no
-  modules and no cluster either, so the default App is whole.
+- it refuses, with a ValueError naming the ROADMAP item that brings it,
+  a cluster config, CLUSTER_HOSTNAME or CLUSTER_JOIN (queue 1 item 15),
+  which the port does not serve yet. Without them the reference App runs
+  no cluster either, so the default App is whole.
 TPU_DEVICE_MESH_SHARDS is accepted and reported in the config digest, as
 the reference does; it drives nothing there either. The multi-device mesh
 is a class's `vectorIndexType: "hnsw_tpu_mesh"` (`index/mesh.py`).
@@ -41,12 +42,9 @@ from weaviate_tpu_torch.usecases.traverser import Explorer, Traverser
 from weaviate_tpu_torch.version import __version__ as VERSION
 
 
-def _refuse_unported(config: Config, modules) -> None:
+def _refuse_unported(config: Config) -> None:
     """Raise a ValueError naming the ROADMAP item that brings whatever the
     config asks for that the port does not serve yet."""
-    if modules is not None or config.enable_modules:
-        raise ValueError("ENABLE_MODULES: the vectorizer and reader modules "
-                         "(modules/) are not ported yet: ROADMAP queue 1 item 14")
     if config.cluster.hostname or config.cluster.join:
         raise ValueError("CLUSTER_HOSTNAME/CLUSTER_JOIN: the cluster, "
                          "replication and backup transfer (cluster/) are "
@@ -58,7 +56,7 @@ class App:
                  metrics=None, modules=None, device=None):
         # no config given => read the process environment (environment.go)
         self.config = config or load_config()
-        _refuse_unported(self.config, modules)
+        _refuse_unported(self.config)
         # the card unless the caller names the CPU; no card => raise now
         self.device = resolve_device(device)
         path = data_path or self.config.persistence.data_path
@@ -248,17 +246,32 @@ class App:
             self.fault_injector = None
 
         # single node: the cluster graph (CLUSTER_HOSTNAME/CLUSTER_JOIN)
-        # and the module provider (ENABLE_MODULES) were refused above
+        # was refused above
         self.cluster_node = None
         self.db = DB(path, metrics=self.metrics,
                      store_opts=self._store_opts(), device=self.device)
         self.schema = SchemaManager(
             os.path.join(path, "schema.json"), migrator=self.db,
             default_vectorizer=self.config.default_vectorizer_module)
-        self.modules = None
-        # class creation must fail fast on a vectorizer, since no module is
-        # enabled (instead of importing vectorless objects)
-        self.schema.vectorizer_validator = lambda name: False
+        # modules: explicit injection wins; else built from ENABLE_MODULES
+        # (registerModules, configure_api.go:471); either way their device
+        # work runs on the App's device
+        if modules is None:
+            from weaviate_tpu_torch.modules import build_provider
+
+            modules = build_provider(self.config, device=self.device)
+        if modules is not None:
+            modules.device = self.device
+            ref2vec = modules.get("ref2vec-centroid")
+            if ref2vec is not None:
+                ref2vec.set_db(self.db)
+        self.modules = modules
+        # class creation must fail fast on a vectorizer that is not an
+        # enabled module (instead of importing vectorless objects)
+        enabled = set(modules.names()) if modules is not None else set()
+        self.schema.vectorizer_validator = (
+            lambda name: name in enabled
+        )
         self.auto_schema = (
             AutoSchema(
                 self.schema,
