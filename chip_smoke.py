@@ -2,10 +2,11 @@
 """Drive the PyTorch/CUDA port (weaviate_tpu_torch) on one NVIDIA card at
 the headline scale and at the PQ configuration's, run its stage profiler
 at full width, drive its Shard and its App (REST, GraphQL, gRPC, the
-coalescer) at 2^18 objects, its IVF scan plane on the headline's data,
+coalescer) at 2^17 objects, its IVF scan plane on the headline's generator,
 its device BM25 engine on passage-length documents, its mesh index over
-four slabs of the card and its module system (text2vec-local, t-SNE,
-backups) behind the App, and check them.
+four slabs of the card, its module system (text2vec-local, t-SNE,
+backups) behind the App, its native graph engine beside a card class, and
+a three-node cluster of Apps on the card, and check them.
 
     python3 chip_smoke.py [--seed 7]
 
@@ -62,10 +63,11 @@ C. the stage profiler (`weaviate_tpu_torch.tools.profile_gmin`) at its
    timed beside K1 on the untransposed store at the same shape.
 
 D. the Shard (`weaviate_tpu_torch.db.shard.Shard`) at full width: one
-   class of 262,144 objects (2^18; 2^20 until F and G joined the run) with
+   class of 131,072 objects (2^17; 2^20 until F and G joined the run, 2^18
+   until J and L did) with
    SIFT-shaped clustered vectors (the headline generator, D 128, seed + 3),
-   l2, k=10, two properties (`tag`, text with 32 values, 8192 rows each:
-   the gather tier; `bucket`, int 0-999, `bucket < 500` ~131k rows: the
+   l2, k=10, two properties (`tag`, text with 32 values, 4096 rows each:
+   the gather tier; `bucket`, int 0-999, `bucket < 500` ~65k rows: the
    masked K1 scan), imported through
    `Shard.put_batch` in batches of 10,000 and flushed to LSM segments.
    Its main path (K1's count set to 0 just before, read just after):
@@ -86,7 +88,7 @@ D. the Shard (`weaviate_tpu_torch.db.shard.Shard`) at full width: one
 
 E. the App (`weaviate_tpu_torch.server.App` on the card, its default
    config: the reference App's LSM settings) at D's size: D's class
-   created through REST `POST /v1/schema`, 262,144 objects with D's
+   created through REST `POST /v1/schema`, 131,072 objects with D's
    generator (seed + 5) imported through `app.batch` (the use case under
    `/v1/batch/objects`) in batches of 10,000 and one real REST `POST
    /v1/batch/objects` of 1,000 JSON objects, flushed to segments; K1 held
@@ -107,9 +109,10 @@ E. the App (`weaviate_tpu_torch.server.App` on the card, its default
    K1's kernel. Whether the machine has grpc and protobuf is probed with
    importlib.util.find_spec and printed; without them phase E fails.
 
-F. the IVF scan plane (ops/ivf.py) on A's data (1M x 128 f32, seed 7,
-   l2, uncompressed) with every IVF knob at its default (nlist auto 4096,
-   top_p auto 256, no PCA), trained by the import through `add_batch`
+F. the IVF scan plane (ops/ivf.py) on A's generator at 524,288 x 128 f32
+   (seed 7; 1M until J and L joined the run: three host trainings were
+   the run's longest phase), l2, uncompressed, with every IVF knob at its
+   default (nlist auto 2048 here, top_p auto 128, no PCA), trained by the import through `add_batch`
    (the host training timed). Its main path: sync batches at B 256 (7
    runs) and B 16384 (3 runs), recall@10 >= 0.95 against exact f32 on 1024
    queries, probed_fraction; the same index's flat tier (K1, IVF off) at
@@ -122,7 +125,7 @@ F. the IVF scan plane (ops/ivf.py) on A's data (1M x 128 f32, seed 7,
    prefilter): recall@10 >= 0.90 and its B 256 p50.
 
 G. device BM25: a Shard with `invertedIndexConfig.bm25.device` and one
-   text property `body`, 131,072 passage-length documents (50 words each,
+   text property `body`, 65,536 passage-length documents (50 words each,
    Zipf s = 1 over a 30,000-word vocabulary, seed + 9: the shape of MS
    MARCO passage ranking, cut from its 8.8M passages because the host's
    inverted-index import is slow) through `Shard.put_batch`; 256 queries
@@ -174,10 +177,43 @@ I. the module system: an App on the card with ENABLE_MODULES=
    and the CPU at n 100 and 1000, 100 and 2000 iterations, and profiled
    (its launches an iteration); a filesystem backup of the class, the
    class deleted and restored, 16 nearText answers equal to before.
+J. the native graph engine beside the card: one App on the card with two
+   classes over the same 131,072 x 128 rows (A's generator, seed + 13,
+   l2), an "hnsw" class at Weaviate's documented defaults
+   (maxConnections 64, efConstruction 128, ef -1: dynamic) and an
+   "hnsw_tpu" class, imported through `app.batch`; the engine's insert
+   rate over its first 16,384 rows (the rows halve while the whole build
+   would take over 60 s: the native insert is serial); a batch of 256
+   through `ClassIndex.object_vector_search` on each class (p50, the
+   OpenMP threads of the graph's batch search), recall@10 against exact
+   distances on the card (hnsw >= 0.95, hnsw_tpu >= 0.99); K1 held
+   against its plain version on the hnsw_tpu store; its main path (K1's
+   count 0 just before the hnsw_tpu batches, read after, > 0); the
+   graph's snapshot plus a delta of re-added rows reopened by a fresh
+   engine, and the App restarted, each answering as before bit for bit.
+L. a three-node cluster of port Apps on the one card (CLUSTER_HOSTNAME,
+   CLUSTER_JOIN with static peers, a data directory each, REST on every
+   node, gRPC on node-0): L1, an hnsw_tpu class of 131,072 rows (A's
+   generator, seed + 17, l2) over 3 shards at factor 1, imported over
+   node-0's REST in batches of 1024 (L1 and L2 halve while the import
+   would take over 90 s); K1 against its plain version on node-0's
+   shard; its main path (K1's count 0 just before, read after, >= 3 a
+   batch): a gRPC BatchSearch of 256 to node-0 that fans out to its
+   shard and the two remote ones, recall@10 >= 0.99 against exact over
+   every row, and the same 256 queries as one /v1/graphql/batch (one
+   row per shard a query: the chunked scan); L2, one shard at factor 3,
+   32,768 rows imported at QUORUM: GETs at ALL equal on every node;
+   node-2 stopped and marked down: writes, a delete and reads at QUORUM
+   served, a write at ALL refused (ReplicationError at the coordinator,
+   500 over REST as the JAX App answers); node-2 back on its directory:
+   reads at ALL repair it, the three replicas' digests equal, the
+   deleted object stays deleted; a filesystem backup of L2 across the
+   cluster, the class deleted and restored, 16 answers equal; then the
+   BatchSearch's p50 beside one node holding the same rows.
 
     python3 chip_smoke.py --only F,G
 
-runs only the named workloads (a subset of A,B,A16,C,D,E,F,G,H,I) and prints
+runs only the named workloads (a subset of A,B,A16,C,D,E,F,G,H,I,J,L) and prints
 no result lines: a quick card check of one part.
 
     python3 chip_smoke.py --busy-share CHECKOUT
@@ -208,10 +244,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    profiler modes with their launch counts (each count set to 0 just
    before the modes run and read just after), K1's time on the same store
    and shape, then the layout kernels' timings and their ratio to it;
-6. A-bf16, then D, then E, then F, then G, then H, then I (each names
-   itself on stderr);
+6. A-bf16, then D, then E, then F, then G, then H, then I, then J, then
+   L (each names itself on stderr, and logs its seconds);
 7. the card line, one JSON line of per-kernel numbers (K1's launches and
-   max abs error include D's, E's, H1's and I's, K1-bf16's the A-bf16
+   max abs error include D's, E's, H1's, I's, J's and L's, K1-bf16's the A-bf16
    run's and H2's, K2's H3's), the result line.
 
 Each phase also names itself on stderr as it starts. A watchdog stops the
@@ -256,9 +292,10 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-3
 KERNELS = ("gmin_scan", "pq_gmin", "gmin_layouts")  # the CUDA sources
 PROF_N, PROF_ITERS = 1 << 20, 8  # workload C: the profiler's default shape
-D_N = 1 << 18             # workload D: objects in the shard (2^20 until F and G joined)
+# workload D: objects in the shard (2^20 until F and G joined the run, 2^18 until J and L)
+D_N = 1 << 17
 D_IMPORT = 10_000         # objects per Shard.put_batch
-D_TAGS, D_BUCKETS = 32, 1000  # tag values (8192 rows each), bucket range
+D_TAGS, D_BUCKETS = 32, 1000  # tag values (4096 rows each), bucket range
 D_B, D_REPS = 256, 7      # hydrated batch (bench.py's _grpc_e2e shape), timed runs
 D_RAW_REPS = 5            # timed raw-lane batches of BATCH queries
 D_HOST_B, D_EXACT_B = 64, 4  # host-plane batch; rows per exact-tier device call (B < 8)
@@ -280,20 +317,37 @@ F_B, F_REPS, F_BIG_REPS = 256, 7, 3  # workload F: small batch; timed runs at B 
 F_PCA_DIM, F_PCA_BAR = 32, 0.90  # F's prefilter index (tests/test_ivf.py:309's bar)
 # B2's and B3's IVF layouts: half F's partitions and two k-means passes, so
 # that two host trainings at D 768 fit the run's time beside F's three
-B_IVF = {"nlist": 2048, "train_iters": 2}
-G_N, G_WORDS, G_VOCAB = 131072, 50, 30000  # workload G: documents, words each, vocabulary
+B_IVF = {"nlist": 2048, "train_iters": 1}  # 2 iterations until J and L joined
+F_N = 1 << 19  # workload F's rows (1M, A's, until J and L joined the run)
+# workload G: documents (131072 until J and L joined the run), words each, vocabulary
+G_N, G_WORDS, G_VOCAB = 65536, 50, 30000
 G_Q, G_IMPORT = 256, 8192  # keyword queries (2-8 words); documents per Shard.put_batch
 G_ALLOW_Q, G_BATCH_REPS = 64, 5  # queries per allowList; timed runs of the batch lane
 H_SLABS = 4               # workload H: slabs of the mesh (one card named H_SLABS times)
 H_B, H_REPS = 256, 7      # the small batch of A, B2 and H, and its timed runs
 H_RECALL_BAR, H_BF16_BAR = 0.99, 0.98  # tests/test_recall_fixture.py's multi-device bar
-I_CLASS, I_N, I_IMPORT = "Passage", 1 << 18, 1024  # workload I: objects, per REST batch
+# workload I: objects (2^18 until J and L joined the run), per REST batch
+I_CLASS, I_N, I_IMPORT = "Passage", 1 << 17, 1024
 I_VOCAB, I_ZIPF = 30000, 1.1  # words of the texts' vocabulary, Zipf exponent
 I_Q, I_ONE_REQS, I_REPS = 256, 32, 5  # nearText batch, single requests, timed batches
 I_READBACK = 64           # vectors read back and held against a fresh vectorizer
-I_TSNE = ((100, 100), (100, 2000), (1000, 100), (1000, 2000))  # t-SNE timings: n, iterations
+I_TSNE = ((100, 100), (100, 2000), (1000, 100), (1000, 1000))  # t-SNE timings: n, iterations
+# workload J: the native graph engine ("hnsw", Weaviate's documented defaults:
+# entities/vectorindex/hnsw/config.go:33-49) beside an "hnsw_tpu" class
+J_GRAPH, J_CARD, J_N, J_IMPORT = "GraphRow", "CardRow", 131072, 8192
+J_HNSW = {"distance": "l2-squared", "maxConnections": 64, "efConstruction": 128, "ef": -1}
+J_TIMED, J_BUILD_S = 16384, 60.0  # rows timed first; J_N halves while the engine would take longer
+J_B, J_REPS, J_DELTA = 256, 5, 1024  # batch, timed runs, rows re-added after the snapshot
+J_GRAPH_BAR, J_CARD_BAR = 0.95, 0.99  # recall@10 bars of the hnsw and hnsw_tpu classes
+# workload L: three port nodes on one card (Weaviate's replication
+# architecture: factor 3, consistency ONE / QUORUM / ALL)
+L1, L2, L1_N, L2_N = "ScatterRow", "ReplicaRow", 131072, 32768
+L_IMPORT, L_TIMED, L_IMPORT_S = 1024, 16384, 90.0  # REST batch; timed rows; import limit
+L_B, L_REPS, L_GQL_REPS = 256, 5, 3  # BatchSearch width, timed batches; /v1/graphql/batch runs
+L_RECALL_BAR, L_CHECKS = 0.99, 32  # recall@10 bar; objects checked across replicas
+L_ALL_REFUSED = 500  # what the JAX App's REST answers for a ReplicationError
 BUSY_REPS = 3             # profiled batches per workload of --busy-share
-WATCHDOG_S = 1140  # seconds: a run past this has stalled (a whole run takes ~930 s)
+WATCHDOG_S = 1140  # seconds: a run past this has stalled (a whole run takes ~820 s on an H100 at 700 W)
 T_START = time.perf_counter()
 WANTED: set = set()  # the workloads this run drives (main sets it)
 SHARED: dict = {}    # what a workload hands a later one: A's and B2's p50s, B2's answers and files
@@ -1334,8 +1388,8 @@ def shard_workload(dev, card, seed) -> dict:
         hyd_note = "not measured" if busy_h is None else f"{prof_h[1]:.2f} ms, {busy_h:.1%} busy"
         log(f"[{card}] D device ms over the unprofiled p50: raw lane {raw_note}; "
             f"hydrated {hyd_note}")
-        # filters: one tag value (8192 rows < flatSearchCutoff 40000: the
-        # gather tier) and bucket < 500 (~131k rows: the masked scan)
+        # filters: one tag value (4096 rows < flatSearchCutoff 40000: the
+        # gather tier) and bucket < 500 (~65k rows: the masked scan)
         q_f = torch.from_numpy(q_hyd).to(dev)
         recalls = {}
         for label, flt, allowed, tier, bar in (
@@ -1497,17 +1551,18 @@ def http(port, method, path, body=None, timeout=300):
         return r.status, raw.decode()
 
 
-def gql_near(q, where: str = "") -> str:
-    """A GraphQL Get nearVector k=K over E's class, ids and distances."""
+def gql_near(q, where: str = "", cls: str = E_CLASS) -> str:
+    """A GraphQL Get nearVector k=K over a class (E's by default), ids and
+    distances."""
     return ("{ Get { %s(nearVector: {vector: %s}, limit: %d%s) { _additional { id distance } } } }"
-            % (E_CLASS, json.dumps([round(float(v), 7) for v in q]), K, where))
+            % (cls, json.dumps([round(float(v), 7) for v in q]), K, where))
 
 
-def gql_rows(reply) -> tuple[list[int], list[float]]:
+def gql_rows(reply, cls: str = E_CLASS) -> tuple[list[int], list[float]]:
     """A GraphQL Get reply -> (doc ids, distances); an error raises."""
     if reply.get("errors"):
-        raise AssertionError(f"E GraphQL: {reply['errors']}")
-    rows = reply["data"]["Get"][E_CLASS]
+        raise AssertionError(f"{cls} GraphQL: {reply['errors']}")
+    rows = reply["data"]["Get"][cls]
     return ([uuidlib.UUID(r["_additional"]["id"]).int - 1 for r in rows],
             [float(r["_additional"]["distance"]) for r in rows])
 
@@ -1881,8 +1936,8 @@ def same_answers(label, ids, d, want_ids, want_d, atol=0.0) -> None:
 
 
 def ivf_workload(dev, card, seed) -> None:
-    """The IVF plane (ops/ivf.py) on A's data at full width: 1M x 128 f32,
-    l2, every IVF knob at its default (nlist auto 4096, top_p auto 256, no
+    """The IVF plane (ops/ivf.py) on A's generator at F_N x 128 f32, l2,
+    every IVF knob at its default (nlist auto, top_p auto, no
     PCA), trained by the import through `add_batch`. The main path at B 256
     and B 16384 beside the flat tier of the same index; recall, fused ==
     staged, a masked allowList, deletes, top_p = nlist == the exact tier,
@@ -1891,8 +1946,8 @@ def ivf_workload(dev, card, seed) -> None:
     from weaviate_tpu_torch.index import gpu, new_vector_index
     from weaviate_tpu_torch.storage.bitmap import Bitmap
 
-    rng = np.random.default_rng(seed)  # A's data
-    vecs = make_data(N, DIM, rng)
+    rng = np.random.default_rng(seed)  # A's generator
+    vecs = make_data(F_N, DIM, rng)
     batches = queries(vecs, rng)
     q_big = batches[0]
     gt_rows = np.arange(0, BATCH, BATCH // N_GT)
@@ -1908,7 +1963,7 @@ def ivf_workload(dev, card, seed) -> None:
         idx = new_vector_index(cfg, tmp)
         train_s = timed_training(idx)
         t0 = time.perf_counter()
-        idx.add_batch(np.arange(N), vecs)
+        idx.add_batch(np.arange(F_N), vecs)
         torch.cuda.synchronize()
         import_s = time.perf_counter() - t0
         h = idx.health()["ivf"]
@@ -1916,8 +1971,8 @@ def ivf_workload(dev, card, seed) -> None:
             raise AssertionError(f"F: the import did not train one layout ({h})")
         nlist, cap_p = h["nlist"], h["bucket_capacity"]
         plan = idx._ivf_plan(idx._read_snapshot(), K)
-        log(f"F import: {N} rows through add_batch with IVF on, {import_s:.2f} s, of which the "
-            f"host training (k-means on {min(N, 65536)} rows, balanced assignment of {N}, "
+        log(f"F import: {F_N} rows through add_batch with IVF on, {import_s:.2f} s, of which the "
+            f"host training (k-means on {min(F_N, 65536)} rows, balanced assignment of {F_N}, "
             f"buckets) {train_s[0]:.2f} s; nlist {nlist}, bucket capacity {cap_p}, top_p "
             f"{plan[0]}, fill {h['buckets']['fill_min']}-{h['buckets']['fill_max']} "
             f"(padding waste {h['buckets']['padding_waste']:.1%})")
@@ -1956,7 +2011,7 @@ def ivf_workload(dev, card, seed) -> None:
             f"{['%.1f ms' % (t * 1e3) for t in lat_big_f]}; recall@10 {recall_f:.4f}")
 
         # a masked allowList of half the rows: through the probe's mask
-        allowed = np.arange(0, N, 2)
+        allowed = np.arange(0, F_N, 2)
         ids_a, _ = idx.search_by_vectors(q_gt, K, allow_list=Bitmap(allowed))
         if (ids_a.astype(np.int64) % 2 != 0).any():
             raise AssertionError("F: a filtered-out id came back")
@@ -1980,7 +2035,7 @@ def ivf_workload(dev, card, seed) -> None:
         log("F top_p = nlist on 16 queries: ids equal the exact tier's, distances within "
             "rtol 1e-5")
 
-        ids_d, d_d = delete_check(idx, ids_big, q_big, N, "F")
+        ids_d, d_d = delete_check(idx, ids_big, q_big, F_N, "F")
         buckets = idx._read_snapshot().ivf_buckets.cpu()
         ids_d256, d_d256 = idx.search_by_vectors(q256, K)
         idx.shutdown()
@@ -2005,7 +2060,7 @@ def ivf_workload(dev, card, seed) -> None:
         use_ivf(pca_dim=F_PCA_DIM)
         idx = new_vector_index(cfg, tmp)
         train_p = timed_training(idx)
-        idx.add_batch(np.arange(N), vecs)
+        idx.add_batch(np.arange(F_N), vecs)
         snap = idx._read_snapshot()
         top_p, pre_c = idx._ivf_plan(snap, K)
         if snap.ivf_pca_rows is None or not pre_c:
@@ -2021,7 +2076,7 @@ def ivf_workload(dev, card, seed) -> None:
         out.update(pca256=p50_ms(lat_p), recall_pca=r_p)
         idx.shutdown()
         del idx, snap
-        log(f"[{card}] F end to end, k={K}, n={N}: IVF sync p50 B {F_B} {out['ivf256']:.1f} ms "
+        log(f"[{card}] F end to end, k={K}, n={F_N}: IVF sync p50 B {F_B} {out['ivf256']:.1f} ms "
             f"vs flat {out['flat256']:.1f} ms, B {BATCH} {out['ivf_big']:.1f} ms vs flat "
             f"{out['flat_big']:.1f} ms; recall@10 {out['recall']:.4f} (flat "
             f"{out['recall_flat']:.4f}); probed_fraction {out['probed']}; busy IVF "
@@ -2958,6 +3013,458 @@ def module_workload(dev, card, seed) -> dict:
     return {"launches": launches, "max_abs_err": max_err}
 
 
+def graph_workload(dev, card, seed) -> dict:
+    """The native graph engine beside the card: one App on the card with
+    two classes over the same J_N rows (A's generator, seed + 13, l2), an
+    "hnsw" class at Weaviate's documented defaults (maxConnections 64,
+    efConstruction 128, ef -1) and an "hnsw_tpu" class; the engine's
+    insert rate, a batch of J_B on each class, recall@10 against exact
+    distances on the card, a restart that answers the same. -> K1's
+    launches on the hnsw_tpu batches and its max abs error there."""
+    from weaviate_tpu_torch.index import hnsw
+    from weaviate_tpu_torch.ops import gmin_scan
+    from weaviate_tpu_torch.server import App
+
+    rng = np.random.default_rng(seed + 13)
+    vecs = make_data(J_N, DIM, rng)
+    q = (rng.standard_normal((J_B, DIM), dtype=np.float32) * 0.1
+         + vecs[rng.integers(0, J_N, J_B)])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_j_")
+    app = None
+
+    def put(cls, lo, hi):
+        for s in range(lo, hi, J_IMPORT):
+            res = app.batch.add_objects([
+                {"class": cls, "id": str(uuidlib.UUID(int=i + 1)), "properties": {"n": i},
+                 "vector": vecs[i]} for i in range(s, min(s + J_IMPORT, hi))])
+            bad = [r.err for r in res if r.err is not None]
+            if bad:
+                raise AssertionError(f"J import of {cls} at {s}: {bad[0]}")
+
+    def batch(cls, reps):
+        idx = app.db.get_index(cls)
+        lat = []
+        for _ in range(reps):
+            t1 = time.perf_counter()
+            res = idx.object_vector_search(q, K)
+            lat.append(time.perf_counter() - t1)
+        ids = np.array([[uuidlib.UUID(r.obj.uuid).int - 1 for r in rows] for rows in res])
+        dists = np.array([[r.distance for r in rows] for rows in res], np.float32)
+        return float(np.median(lat)), ids, dists
+
+    try:
+        app = App(data_path=tmp, device=dev)
+        for cls, typ, cfg in ((J_GRAPH, "hnsw", J_HNSW),
+                              (J_CARD, "hnsw_tpu", {"distance": "l2-squared"})):
+            app.schema.add_class({"class": cls, "vectorIndexType": typ, "vectorIndexConfig": cfg,
+                                  "properties": [{"name": "n", "dataType": ["int"]}]})
+        engine = app.db.get_index(J_GRAPH).single_local_shard().vector_index
+        if not isinstance(engine, hnsw.HnswIndex):
+            raise AssertionError(f"J: the hnsw class is served by {type(engine).__name__}")
+        engine_s, add_batch = [], engine.add_batch
+
+        def timed_add(ids, v):
+            t1 = time.perf_counter()
+            add_batch(ids, v)
+            engine_s.append(time.perf_counter() - t1)
+
+        engine.add_batch = timed_add
+        t0 = time.perf_counter()
+        put(J_GRAPH, 0, J_TIMED)
+        first = sum(engine_s)
+        n = J_N
+        while n > J_TIMED and n * first / J_TIMED > J_BUILD_S:
+            n //= 2
+        log(f"[{card}] J native inserts: the first {J_TIMED} rows in {first:.2f} s of the "
+            f"engine's add_batch ({J_TIMED / first:.0f} rows/s); at that rate {J_N} rows take "
+            f"{J_N * first / J_TIMED:.1f} s (limit {J_BUILD_S:.0f} s): "
+            + (f"{J_N} kept" if n == J_N else f"halved to {n}"))
+        put(J_GRAPH, J_TIMED, n)
+        graph_s = time.perf_counter() - t0
+        insert_s = sum(engine_s)
+        t1 = time.perf_counter()
+        put(J_CARD, 0, n)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t1
+        log(f"[{card}] J import through app.batch in batches of {J_IMPORT}: hnsw {n} rows in "
+            f"{graph_s:.1f} s, of which the engine's inserts {insert_s:.1f} s ({n / insert_s:.0f} "
+            f"rows/s); hnsw_tpu {card_s:.1f} s ({n / card_s:.0f} rows/s)")
+
+        x = torch.from_numpy(vecs[:n]).to(dev)
+        gt = exact_topk(torch.from_numpy(q).to(dev), x, K)
+        del x
+        card_shard = app.db.get_index(J_CARD).single_local_shard()
+        max_err = check_k1_on_shard("J", "the hnsw_tpu class", card_shard, q, dev, seed + 14,
+                                    (J_B,))
+        threads = hnsw.omp_threads()
+        p50_g, ids_g, d_g = batch(J_GRAPH, J_REPS)
+        phase("J main path")
+        gmin_scan.launches = 0
+        p50_c, ids_c, _ = batch(J_CARD, J_REPS)
+        launches = gmin_scan.launches
+        r_g, r_c = recall_at_k(ids_g, gt), recall_at_k(ids_c, gt)
+        log(f"[{card}] J batch of {J_B} through ClassIndex.object_vector_search, k={K}, n={n}: "
+            f"hnsw p50 {p50_g * 1e3:.2f} ms (hnsw_search_batch on {threads} OpenMP threads, "
+            f"{os.cpu_count()} CPUs), recall@10 {r_g:.4f} (bar {J_GRAPH_BAR}); hnsw_tpu p50 "
+            f"{p50_c * 1e3:.2f} ms, recall@10 {r_c:.4f} (bar {J_CARD_BAR}), K1 launches "
+            f"{launches} in {J_REPS} batches")
+        if r_g < J_GRAPH_BAR or r_c < J_CARD_BAR or launches == 0:
+            raise AssertionError(f"J: hnsw recall {r_g:.4f}, hnsw_tpu recall {r_c:.4f}, K1 "
+                                 f"launches {launches}")
+
+        # a snapshot, then J_DELTA re-added rows in the delta log only: the
+        # engine's files reopened by a fresh engine (a crash's restart)
+        # answer as the live one, and so does the App after a clean restart
+        engine.flush()
+        put(J_GRAPH, 0, J_DELTA)
+        engine._log.flush()
+        ids_l, d_l = engine.search_by_vectors(q, K)
+        crash = os.path.join(tmp, "crash")
+        os.makedirs(crash)
+        for f in engine.list_files():
+            shutil.copy(f, crash)
+        t1 = time.perf_counter()
+        reopened = hnsw.HnswIndex(engine.config, crash)
+        replay_s = time.perf_counter() - t1
+        ids_o, d_o = reopened.search_by_vectors(q, K)
+        reopened.shutdown()
+        if not (np.array_equal(ids_o, ids_l) and np.array_equal(d_o, d_l)):
+            raise AssertionError("J: the snapshot plus delta answers differently")
+        _, ids_g, d_g = batch(J_GRAPH, 1)
+        app.shutdown()
+        t1 = time.perf_counter()
+        app = App(data_path=tmp, device=dev)
+        restart_s = time.perf_counter() - t1
+        _, ids_r, d_r = batch(J_GRAPH, 1)
+        if not (np.array_equal(ids_r, ids_g) and np.array_equal(d_r, d_g)):
+            raise AssertionError("J: the hnsw class answers differently after the restart")
+        log(f"J restart: the snapshot plus a delta of {J_DELTA} re-added rows reopened in "
+            f"{replay_s:.2f} s and the App restarted in {restart_s:.2f} s; both answer the "
+            f"{J_B} queries as before, ids and distances bit for bit")
+    finally:
+        if app is not None:
+            app.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": max_err}
+
+
+def http_status(port, method, path, body=None, timeout=300):
+    """http() that returns an error status instead of raising."""
+    import urllib.error
+    try:
+        return http(port, method, path, body, timeout)
+    except urllib.error.HTTPError as e:
+        raw = e.read()
+        return e.code, (json.loads(raw) if raw else None)
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def cluster_workload(dev, card, seed) -> dict:
+    """A three-node port cluster on the one card: three Apps with
+    CLUSTER_HOSTNAME and CLUSTER_JOIN (static peers), each with its own
+    data directory, serving REST. L1 scatter-gather over three shards
+    (factor 1); L2 one shard at factor 3: consistency levels, a node down,
+    read repair after its return, deletes, a backup and restore across
+    the cluster. -> K1's launches on L1's main path and its max abs error
+    on node-0's shard."""
+    from weaviate_tpu_torch.config import load_config
+    from weaviate_tpu_torch.entities.storobj import StorObj
+    from weaviate_tpu_torch.grpcapi import weaviate_pb2 as pb
+    from weaviate_tpu_torch.ops import gmin_scan
+    from weaviate_tpu_torch.server import App, RestServer
+    from weaviate_tpu_torch.server.grpc_server import GrpcServer, SearchClient
+    from weaviate_tpu_torch.usecases.replica import ReplicationError
+
+    rng = np.random.default_rng(seed + 17)
+    n1, n2 = L1_N, L2_N
+    vecs = make_data(n1, DIM, rng)
+    q = (rng.standard_normal((L_B, DIM), dtype=np.float32) * 0.1
+         + vecs[rng.integers(0, n1, L_B)])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_l_")
+    names = [f"node-{i}" for i in range(3)]
+    ports = [free_port() for _ in names]
+
+    def config(i):
+        return load_config({
+            **os.environ, "CLUSTER_HOSTNAME": names[i], "CLUSTER_DATA_BIND_PORT": str(ports[i]),
+            "CLUSTER_JOIN": ",".join(f"{names[j]}@127.0.0.1:{ports[j]}" for j in range(3)
+                                     if j != i),
+            "ENABLE_MODULES": "backup-filesystem",
+            "BACKUP_FILESYSTEM_PATH": os.path.join(tmp, "backups")})
+
+    apps, servers = [None] * 3, [None] * 3
+
+    def start(i):
+        apps[i] = App(config=config(i), data_path=os.path.join(tmp, names[i]), device=dev)
+        servers[i] = RestServer(apps[i], host="127.0.0.1", port=0)
+        servers[i].start()
+
+    def stop(i):
+        if servers[i] is not None:
+            servers[i].stop()
+        if apps[i] is not None:
+            apps[i].shutdown()
+        apps[i] = servers[i] = None
+
+    def obj(cls, i):
+        return {"class": cls, "id": str(uuidlib.UUID(int=i + 1)), "properties": {"n": i},
+                "vector": vecs[i].tolist()}
+
+    def rest_import(port, cls, lo, hi, cl=None):
+        path = "/v1/batch/objects" + (f"?consistency_level={cl}" if cl else "")
+        for s in range(lo, hi, L_IMPORT):
+            st, res = http(port, "POST", path, {"objects": [
+                obj(cls, i) for i in range(s, min(s + L_IMPORT, hi))]})
+            if st != 200 or any("errors" in r["result"] for r in res):
+                raise AssertionError(f"L import of {cls} at {s}: {st}")
+
+    def get(i, cls, k, cl):
+        return http_status(servers[i].port, "GET",
+                           f"/v1/objects/{cls}/{uuidlib.UUID(int=k + 1)}"
+                           f"?include=vector&consistency_level={cl}")
+
+    gsrv = client = one = None
+    try:
+        for i in range(3):
+            start(i)
+        port0 = servers[0].port
+        for cls, shards, factor in ((L1, 3, 1), (L2, 1, 3)):
+            st, _ = http(port0, "POST", "/v1/schema", {
+                "class": cls, "vectorIndexType": "hnsw_tpu",
+                "vectorIndexConfig": {"distance": "l2-squared"},
+                "shardingConfig": {"desiredCount": shards},
+                "replicationConfig": {"factor": factor},
+                "properties": [{"name": "n", "dataType": ["int"]}]})
+            if st != 200:
+                raise AssertionError(f"L POST /v1/schema {cls}: {st}")
+
+        # L1: import through node-0 over REST; the first L_TIMED rows say
+        # whether L1 and L2 fit L_IMPORT_S or halve
+        t0 = time.perf_counter()
+        rest_import(port0, L1, 0, L_TIMED)
+        rate = L_TIMED / (time.perf_counter() - t0)
+        while n1 > L_TIMED and (n1 + 3 * n2) / rate > L_IMPORT_S:
+            n1, n2 = n1 // 2, n2 // 2
+        log(f"[{card}] L1 import: the first {L_TIMED} objects at {rate:.0f} objects/s; "
+            f"{L1_N} + 3 x {L2_N} replica writes would take {(L1_N + 3 * L2_N) / rate:.1f} s "
+            f"(limit {L_IMPORT_S:.0f} s): "
+            + ("kept" if n1 == L1_N else f"halved to L1 {n1}, L2 {n2}"))
+        rest_import(port0, L1, L_TIMED, n1)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        local = [sum(s.object_count() for s in a.db.get_index(L1).shards.values()) for a in apps]
+        if sum(local) != n1 or min(local) == 0:
+            raise AssertionError(f"L1 import: {local} objects per node")
+        log(f"[{card}] L1 import: {n1} objects through node-0's REST POST /v1/batch/objects in "
+            f"batches of {L_IMPORT}: {import_s:.1f} s, {n1 / import_s:.0f} objects/s; per node "
+            f"{local}")
+
+        gt = exact_topk(torch.from_numpy(q).to(dev), torch.from_numpy(vecs[:n1]).to(dev), K)
+        shard0 = next(iter(apps[0].db.get_index(L1).shards.values()))
+        max_err = check_k1_on_shard("L1", "node-0's shard", shard0, q, dev, seed + 18, (L_B,))
+        del shard0
+
+        # the main path: one BatchSearch of L_B fans out to node-0's shard
+        # and to the two remote shards, each a batch of L_B rows (K1)
+        gsrv = GrpcServer(apps[0], host="127.0.0.1", port=0)
+        gsrv.start()
+        client = SearchClient(f"127.0.0.1:{gsrv.port}")
+
+        def breq(cls):
+            return pb.BatchSearchRequest(requests=[
+                pb.SearchRequest(class_name=cls, limit=K,
+                                 near_vector=pb.NearVectorParams(vector=v.tolist()))
+                for v in q])
+
+        def grpc_batches(req, reps):
+            lat = []
+            for _ in range(reps):
+                t1 = time.perf_counter()
+                reply = client.batch_search(req, timeout=600)
+                lat.append(time.perf_counter() - t1)
+            return float(np.median(lat)), grpc_batch_ids(reply)
+
+        req = breq(L1)
+        grpc_batches(req, 1)  # warm
+        phase("L main path")
+        gmin_scan.launches = 0
+        p50_grpc, ids = grpc_batches(req, L_REPS)
+        launches = gmin_scan.launches
+        r_grpc = recall_at_k(ids, gt)
+        # the same L_B queries as one /v1/graphql/batch: one query a slot,
+        # so each shard sees one row (the chunked scan, by the routing rule)
+        body = [{"query": gql_near(v, cls=L1)} for v in q]
+        lat = []
+        for _ in range(L_GQL_REPS):
+            t1 = time.perf_counter()
+            st, rep = http(port0, "POST", "/v1/graphql/batch", body)
+            lat.append(time.perf_counter() - t1)
+        r_gql = recall_at_k(ids_matrix([gql_rows(r, L1) for r in rep]), gt)
+        p50_gql = float(np.median(lat))
+        log(f"[{card}] L1 scatter-gather over 3 nodes, k={K}, n={n1}: gRPC BatchSearch of "
+            f"{L_B} to node-0 p50 {p50_grpc * 1e3:.2f} ms, recall@10 {r_grpc:.4f}, K1 launches "
+            f"{launches} in {L_REPS} batches ({launches / L_REPS:.1f} a batch); "
+            f"/v1/graphql/batch of {L_B} p50 {p50_gql * 1e3:.2f} ms, recall@10 {r_gql:.4f}")
+        if min(r_grpc, r_gql) < L_RECALL_BAR or launches < 3 * L_REPS:
+            raise AssertionError(f"L1: recall {r_grpc:.4f} / {r_gql:.4f}, K1 launches "
+                                 f"{launches} in {L_REPS} batches")
+        client.close()
+        gsrv.stop()
+        client = gsrv = None
+
+        # L2: one shard on all three nodes, imported at QUORUM
+        t1 = time.perf_counter()
+        rest_import(port0, L2, 0, n2, cl="QUORUM")
+        l2_s = time.perf_counter() - t1
+        counts = [next(iter(a.db.get_index(L2).shards.values())).object_count() for a in apps]
+        if counts != [n2] * 3:
+            raise AssertionError(f"L2 import at QUORUM: {counts} objects per replica")
+        sample = [int(k) for k in rng.choice(n2, L_CHECKS, replace=False)]
+        for k in sample:
+            got = [get(i, L2, k, "ALL") for i in range(3)]
+            if any(st != 200 for st, _ in got) or any(g[1] != got[0][1] for g in got[1:]):
+                raise AssertionError(f"L2 object {k} at ALL: not equal on every node")
+        log(f"[{card}] L2 import: {n2} objects at factor 3, consistency QUORUM, through "
+            f"node-0: {l2_s:.1f} s, {n2 / l2_s:.0f} objects/s; {L_CHECKS} GETs at ALL equal on "
+            f"every node")
+
+        # node-2 down: QUORUM goes on, ALL is refused
+        stop(2)
+        for a in apps[:2]:
+            a.cluster_node.cluster.mark("node-2", False)
+        new = list(range(n2, n2 + L_CHECKS))  # rows L2 does not hold yet
+        for k in new:
+            st, _ = http_status(port0, "POST", "/v1/objects?consistency_level=QUORUM",
+                                obj(L2, k))
+            if st != 200:
+                raise AssertionError(f"L2 write at QUORUM with node-2 down: {st}")
+        gone = sample[0]
+        st, _ = http_status(port0, "DELETE",
+                            f"/v1/objects/{L2}/{uuidlib.UUID(int=gone + 1)}"
+                            "?consistency_level=QUORUM")
+        if st != 204:
+            raise AssertionError(f"L2 delete at QUORUM with node-2 down: {st}")
+        for k in new[:4] + sample[1:5]:
+            st, _ = get(1, L2, k, "QUORUM")
+            if st != 200:
+                raise AssertionError(f"L2 read at QUORUM with node-2 down: {st}")
+        late = n2 + L_CHECKS
+        try:
+            apps[0].db.get_index(L2).put_object(StorObj(
+                class_name=L2, uuid=str(uuidlib.UUID(int=late + 1)), properties={"n": late},
+                vector=vecs[late]), cl="ALL")
+            raise AssertionError("L2 write at ALL with node-2 down: accepted")
+        except ReplicationError as e:
+            coord = f"ReplicationError: {e}"
+        st, rep = http_status(port0, "POST", "/v1/objects?consistency_level=ALL",
+                              obj(L2, late))
+        if st != L_ALL_REFUSED:
+            raise AssertionError(f"L2 REST write at ALL with node-2 down: {st} {rep}")
+        log(f"L2 node-2 down: {L_CHECKS} writes, a delete and 8 reads at QUORUM served; a "
+            f"write at ALL refused at the coordinator ({coord[:80]}) and over REST with "
+            f"{st}")
+
+        # node-2 back on its directory: reads at ALL repair it
+        t1 = time.perf_counter()
+        start(2)
+        for a in apps[:2]:
+            a.cluster_node.cluster.mark("node-2", True)
+        back_s = time.perf_counter() - t1
+        api = [a.cluster_node.api for a in apps]
+        shard_name = next(iter(apps[0].db.get_index(L2).shards))
+        uuids = [str(uuidlib.UUID(int=k + 1)) for k in new + [gone]]
+        stale = sum(a != b for a, b in zip(api[2].digest_many(L2, shard_name, uuids),
+                                           api[0].digest_many(L2, shard_name, uuids)))
+        for k in new:
+            st, _ = get(0, L2, k, "ALL")
+            if st != 200:
+                raise AssertionError(f"L2 read at ALL after node-2's return: {st}")
+        st, _ = get(0, L2, gone, "ALL")
+        if st != 404:
+            raise AssertionError(f"L2: the deleted object came back at ALL ({st})")
+        digests = [a.digest_many(L2, shard_name, uuids) for a in api]
+        if digests[1] != digests[0] or digests[2] != digests[0]:
+            raise AssertionError("L2: the replicas' digests differ after read repair")
+        if any(d["exists"] for d in digests[2][-1:]):
+            raise AssertionError("L2: read repair resurrected the deleted object on node-2")
+        log(f"L2 node-2 back in {back_s:.2f} s: {stale} of "
+            f"{len(uuids)} objects stale on it before, reads at ALL repaired them and the "
+            f"three replicas' digests are equal; the deleted object stayed deleted")
+
+        # a backup of L2 across the cluster, restored
+        want = [gql_rows(http(port0, "POST", "/v1/graphql", {"query": gql_near(v, cls=L2)})[1],
+                         L2) for v in q[:16]]
+        t1 = time.perf_counter()
+        st, _ = http(port0, "POST", "/v1/backups/filesystem", {"id": "l-backup",
+                                                               "include": [L2]})
+        meta = apps[0].backup_scheduler.wait("l-backup", timeout=600)
+        if st != 200 or meta["status"] != "SUCCESS":
+            raise AssertionError(f"L2 backup: {st} {meta}")
+        backup_s = time.perf_counter() - t1
+        http(port0, "DELETE", f"/v1/schema/{L2}")
+        t1 = time.perf_counter()
+        st, _ = http(port0, "POST", "/v1/backups/filesystem/l-backup/restore", {})
+        meta = apps[0].backup_scheduler.wait("l-backup", restore=True, timeout=600)
+        if st != 200 or meta["status"] != "SUCCESS":
+            raise AssertionError(f"L2 restore: {st} {meta}")
+        restore_s = time.perf_counter() - t1
+        for i, v in enumerate(q[:16]):
+            ids_v, d_v = gql_rows(http(port0, "POST", "/v1/graphql",
+                                       {"query": gql_near(v, cls=L2)})[1], L2)
+            if ids_v != want[i][0]:
+                raise AssertionError(f"L2 restored query {i}: {ids_v} / before {want[i][0]}")
+            np.testing.assert_allclose(d_v, want[i][1], rtol=1e-5)
+        counts = [next(iter(a.db.get_index(L2).shards.values())).object_count() for a in apps]
+        log(f"[{card}] L2 backup-filesystem across the cluster {backup_s:.1f} s; class "
+            f"deleted; restore {restore_s:.1f} s, {counts} objects per replica; 16 answers "
+            f"equal before and after")
+        for i in range(3):
+            stop(i)
+
+        # the same L1 batch on one node holding the same data
+        one = App(data_path=os.path.join(tmp, "one"), device=dev)
+        one.schema.add_class({"class": L1, "vectorIndexType": "hnsw_tpu",
+                              "vectorIndexConfig": {"distance": "l2-squared"},
+                              "properties": [{"name": "n", "dataType": ["int"]}]})
+        for s in range(0, n1, D_IMPORT):
+            res = one.batch.add_objects([{**obj(L1, i), "vector": vecs[i]}
+                                         for i in range(s, min(s + D_IMPORT, n1))])
+            if any(r.err is not None for r in res):
+                raise AssertionError("L one-node import failed")
+        gsrv = GrpcServer(one, host="127.0.0.1", port=0)
+        gsrv.start()
+        client = SearchClient(f"127.0.0.1:{gsrv.port}")
+        grpc_batches(req, 1)
+        p50_one, ids_one = grpc_batches(req, L_REPS)
+        log(f"[{card}] L1 BatchSearch of {L_B}: three nodes p50 {p50_grpc * 1e3:.2f} ms beside "
+            f"one node holding the same {n1} rows {p50_one * 1e3:.2f} ms (recall@10 "
+            f"{recall_at_k(ids_one, gt):.4f})")
+    finally:
+        if client is not None:
+            client.close()
+        if gsrv is not None:
+            gsrv.stop()
+        for i in range(3):
+            try:
+                stop(i)
+            except Exception as e:  # noqa: BLE001 — teardown reports, the error above wins
+                log(f"L teardown of {names[i]}: {type(e).__name__}: {e}")
+        if one is not None:
+            one.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": max_err}
+
+
 def busy_share(card, seed) -> dict:
     """A's and B1's sync p50 and device-busy share alone (`--busy-share`):
     the same data and configurations as workloads A and B1, through only
@@ -3114,7 +3621,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--only", metavar="LIST",
                     help="run only these workloads (a comma-separated subset of "
-                         "A,B,A16,C,D,E,F,G,H,I) and print no result lines")
+                         "A,B,A16,C,D,E,F,G,H,I,J,L) and print no result lines")
     ap.add_argument("--busy-share", metavar="CHECKOUT",
                     help="run only A's and B1's sync p50 and busy share (BUSY_REPS "
                          "profiled batches each), with weaviate_tpu_torch imported from CHECKOUT, a "
@@ -3163,7 +3670,8 @@ def main() -> int:
     # 3-6. the workloads
     runs = (("A", headline), ("B", pq_workload), ("A16", headline_bf16), ("C", profiler_phase),
             ("D", shard_workload), ("E", app_workload), ("F", ivf_workload),
-            ("G", bm25_workload), ("H", mesh_workload), ("I", module_workload))
+            ("G", bm25_workload), ("H", mesh_workload), ("I", module_workload),
+            ("J", graph_workload), ("L", cluster_workload))
     WANTED.update(args.only.split(",") if args.only else (key for key, _ in runs))
     res = {}
     try:
@@ -3181,15 +3689,17 @@ def main() -> int:
         faulthandler.cancel_dump_traceback_later()
         log(f"workloads {args.only} done")
         return 0
-    k1_f32, pq_rows, a16, layout_rows, d_row, e_row, h, i_row = (
-        res[key] for key in ("A", "B", "A16", "C", "D", "E", "H", "I"))
+    k1_f32, pq_rows, a16, layout_rows, d_row, e_row, h, i_row, j_row, l_row = (
+        res[key] for key in ("A", "B", "A16", "C", "D", "E", "H", "I", "J", "L"))
 
-    # 6. result lines: K1's launches include D's, E's, H1's and I's (the
-    # Shard's, the App's, the mesh's and the module App's main paths),
+    # 6. result lines: K1's launches include D's, E's, H1's, I's, J's and
+    # L's (the Shard's, the App's, the mesh's, the module App's, the App
+    # beside the graph engine's and the cluster's main paths),
     # K1-bf16's the bf16-store runs' (A-bf16, H2), K2's the mesh's codes
     # tier (H3)
     k1_bf16, k2 = pq_rows[0], pq_rows[1]
     for row, extra in ((k1_f32, d_row), (k1_f32, e_row), (k1_f32, h["k1"]), (k1_f32, i_row),
+                       (k1_f32, j_row), (k1_f32, l_row),
                        (k1_bf16, a16), (k1_bf16, h["k1_bf16"]), (k2, h["k2"])):
         row["launches"] += extra["launches"]
         row["max_abs_err"] = max(row["max_abs_err"], extra["max_abs_err"])

@@ -116,7 +116,14 @@ def test_serving_chain_imports_no_jax_or_reference_module():
             "weaviate_tpu_torch.modules.text2vec_contextionary, "
             "weaviate_tpu_torch.modules.contextionary_pb2, "
             "weaviate_tpu_torch.modules.text2vec_http, "
-            "weaviate_tpu_torch.modules.text2vec_local, weaviate_tpu_torch.ops.tsne\n"
+            "weaviate_tpu_torch.modules.text2vec_local, weaviate_tpu_torch.ops.tsne, "
+            "weaviate_tpu_torch.client, weaviate_tpu_torch.cluster, "
+            "weaviate_tpu_torch.cluster.httputil, weaviate_tpu_torch.cluster.payloads, "
+            "weaviate_tpu_torch.cluster.membership, weaviate_tpu_torch.cluster.gossip, "
+            "weaviate_tpu_torch.cluster.tx, weaviate_tpu_torch.cluster.remote_client, "
+            "weaviate_tpu_torch.cluster.clusterapi, weaviate_tpu_torch.cluster.node, "
+            "weaviate_tpu_torch.usecases.replica, weaviate_tpu_torch.usecases.scaler, "
+            "weaviate_tpu_torch.index.hnsw\n"
             "bad = sorted(m for m in set(sys.modules) - before if m.startswith('jax') "
             "or m.split('.')[0] == 'weaviate_tpu')\n"
             "print(','.join(bad))")
@@ -126,15 +133,73 @@ def test_serving_chain_imports_no_jax_or_reference_module():
     assert out.stdout.strip() == "", out.stdout
 
 
-@pytest.mark.parametrize("env, item", [
-    ({"CLUSTER_HOSTNAME": "node-1"}, "item 15"),
-], ids=["cluster"])
-def test_app_refuses_what_the_port_does_not_serve_yet(tmp_path, env, item):
-    from weaviate_tpu_torch.config import load_config
-    from weaviate_tpu_torch.server import App
+def test_app_serves_a_cluster(tmp_path):
+    """CLUSTER_HOSTNAME / CLUSTER_JOIN build the port's ClusterNode on the
+    App's device: two App nodes over REST (as tests/test_cluster.py's
+    full-App test does) share the schema, spread a class's shards over
+    both, and a nearVector through either node finds objects on both."""
+    import uuid as uuidlib
 
-    with pytest.raises(ValueError, match=item):
-        App(config=load_config(env), data_path=str(tmp_path), device="cpu")
+    import numpy as np
+
+    from weaviate_tpu_torch.config import load_config
+    from weaviate_tpu_torch.server import App, RestServer
+
+    pa, pb = _free_port(), _free_port()
+    envs = [{"CLUSTER_HOSTNAME": "node-a", "CLUSTER_DATA_BIND_PORT": str(pa),
+             "CLUSTER_JOIN": f"node-b@127.0.0.1:{pb}"},
+            {"CLUSTER_HOSTNAME": "node-b", "CLUSTER_DATA_BIND_PORT": str(pb),
+             "CLUSTER_JOIN": f"node-a@127.0.0.1:{pa}"}]
+    apps, servers = [], []
+    try:
+        for i, env in enumerate(envs):
+            app = App(config=load_config(env), data_path=str(tmp_path / f"n{i}"),
+                      device="cpu")
+            assert app.cluster_node is not None
+            assert app.cluster_node.device.type == "cpu"
+            srv = RestServer(app, port=0)
+            srv.start()
+            apps.append(app)
+            servers.append(srv)
+
+        def req(port, method, path, body=None):
+            data = json.dumps(body).encode() if body is not None else None
+            r = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                       method=method)
+            r.add_header("Content-Type", "application/json")
+            with urllib.request.urlopen(r, timeout=30) as resp:
+                raw = resp.read()
+                return resp.status, json.loads(raw) if raw else None
+
+        st, _ = req(servers[0].port, "POST", "/v1/schema", {
+            "class": "Two", "properties": [{"name": "n", "dataType": ["int"]}],
+            "vectorIndexType": "hnsw_tpu",
+            "vectorIndexConfig": {"distance": "l2-squared"},
+            "shardingConfig": {"desiredCount": 2}})
+        assert st == 200
+        st, sch = req(servers[1].port, "GET", "/v1/schema")
+        assert [c["class"] for c in sch["classes"]] == ["Two"]
+        vecs = np.random.default_rng(3).standard_normal((24, 4)).astype(np.float32)
+        objs = [{"class": "Two", "id": str(uuidlib.UUID(int=i + 1)),
+                 "properties": {"n": i}, "vector": vecs[i].tolist()} for i in range(24)]
+        st, out = req(servers[0].port, "POST", "/v1/batch/objects", {"objects": objs})
+        assert st == 200 and all(o["result"]["status"] == "SUCCESS" for o in out)
+        local = [sum(s.object_count() for s in a.db.get_index("Two").shards.values())
+                 for a in apps]
+        assert sum(local) == 24 and all(c > 0 for c in local)
+        for srv in servers:
+            for i in (2, 19):
+                q = {"query": "{ Get { Two(nearVector: {vector: %s}, limit: 1) "
+                              "{ n } } }" % json.dumps(vecs[i].tolist())}
+                st, res = req(srv.port, "POST", "/v1/graphql", q)
+                assert st == 200 and res["data"]["Get"]["Two"][0]["n"] == i
+        st, nodes = req(servers[1].port, "GET", "/v1/nodes")
+        assert {n["name"] for n in nodes["nodes"]} == {"node-a", "node-b"}
+    finally:
+        for s in servers:
+            s.stop()
+        for a in apps:
+            a.shutdown()
 
 
 def test_app_serves_enable_modules(tmp_path):

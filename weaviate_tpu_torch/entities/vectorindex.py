@@ -1,6 +1,6 @@
 """Vector-index user configs and the index-type registry (the port's own
-copy of `weaviate_tpu/entities/vectorindex.py`, cut to what the
-`hnsw_tpu`, `flat` and `noop` index types read, the whole `pq` block
+copy of `weaviate_tpu/entities/vectorindex.py`, cut to what the `hnsw`,
+`hnsw_tpu`, `hnsw_tpu_mesh`, `flat` and `noop` index types read, the whole `pq` block
 included; other schema keys are ignored, as the JAX package ignores keys
 it does not know).
 
@@ -49,6 +49,9 @@ MATMUL_DISTANCES = (DISTANCE_L2, DISTANCE_DOT, DISTANCE_COSINE)
 DEFAULT_MAX_CONNECTIONS = 64
 DEFAULT_EF_CONSTRUCTION = 128
 DEFAULT_EF = -1  # dynamic
+DEFAULT_DYNAMIC_EF_MIN = 100
+DEFAULT_DYNAMIC_EF_MAX = 500
+DEFAULT_DYNAMIC_EF_FACTOR = 8
 DEFAULT_CLEANUP_INTERVAL_SECONDS = 300
 DEFAULT_FLAT_SEARCH_CUTOFF = 40_000
 
@@ -108,8 +111,8 @@ class PQConfig:
 
 @dataclass
 class HnswUserConfig:
-    """UserConfig shared by "hnsw_tpu", "hnsw_tpu_mesh", "flat" and "noop"
-    (config.go:52-66)."""
+    """UserConfig shared by "hnsw", "hnsw_tpu", "hnsw_tpu_mesh", "flat" and
+    "noop" (config.go:52-66)."""
 
     index_type: str = "hnsw_tpu"
     skip: bool = False
@@ -117,6 +120,10 @@ class HnswUserConfig:
     max_connections: int = DEFAULT_MAX_CONNECTIONS
     ef_construction: int = DEFAULT_EF_CONSTRUCTION
     ef: int = DEFAULT_EF
+    # the native graph engine's dynamic ef (index/hnsw.py, ef = -1)
+    dynamic_ef_min: int = DEFAULT_DYNAMIC_EF_MIN
+    dynamic_ef_max: int = DEFAULT_DYNAMIC_EF_MAX
+    dynamic_ef_factor: int = DEFAULT_DYNAMIC_EF_FACTOR
     flat_search_cutoff: int = DEFAULT_FLAT_SEARCH_CUTOFF
     distance: str = DISTANCE_COSINE
     pq: PQConfig = field(default_factory=PQConfig)
@@ -140,6 +147,9 @@ class HnswUserConfig:
             max_connections=int(d.get("maxConnections", DEFAULT_MAX_CONNECTIONS)),
             ef_construction=int(d.get("efConstruction", DEFAULT_EF_CONSTRUCTION)),
             ef=int(d.get("ef", DEFAULT_EF)),
+            dynamic_ef_min=int(d.get("dynamicEfMin", DEFAULT_DYNAMIC_EF_MIN)),
+            dynamic_ef_max=int(d.get("dynamicEfMax", DEFAULT_DYNAMIC_EF_MAX)),
+            dynamic_ef_factor=int(d.get("dynamicEfFactor", DEFAULT_DYNAMIC_EF_FACTOR)),
             flat_search_cutoff=int(d.get("flatSearchCutoff", DEFAULT_FLAT_SEARCH_CUTOFF)),
             distance=d.get("distance", DISTANCE_COSINE),
             pq=PQConfig.from_dict(d.get("pq") or {}),
@@ -230,9 +240,9 @@ def validate_config_update(old: HnswUserConfig, new: HnswUserConfig) -> None:
         raise ConfigValidationError("pq is already enabled: can't disable")
 
 
-# the index types this port serves (the JAX package's registry also holds
-# the native-graph type "hnsw", which is not ported yet)
+# the index types this port serves: the JAX package's registry
 _PARSERS: dict[str, Callable[[Optional[dict]], HnswUserConfig]] = {
+    "hnsw": lambda d: HnswUserConfig.from_dict(d, "hnsw"),
     "hnsw_tpu": lambda d: HnswUserConfig.from_dict(d, "hnsw_tpu"),
     "hnsw_tpu_mesh": lambda d: HnswUserConfig.from_dict(d, "hnsw_tpu_mesh"),
     "flat": lambda d: HnswUserConfig.from_dict(d, "flat"),

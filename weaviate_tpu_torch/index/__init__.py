@@ -1,6 +1,8 @@
 """Vector indexes behind the VectorIndex seam (reference
 adapters/repos/db/vector_index.go:23-40). Implementations in this port:
 
+- hnsw.HnswIndex       ("hnsw"): the native C++ graph engine on the host
+  (native/hnsw.cpp), picked by its type beside the card's indexes
 - gpu.GpuVectorIndex   ("hnsw_tpu"/"flat"): device-resident batched kNN
 - mesh.MeshVectorIndex ("hnsw_tpu_mesh"): the same, sharded row-wise over
   a list of devices, one slab each
@@ -10,13 +12,6 @@ adapters/repos/db/vector_index.go:23-40). Implementations in this port:
 from weaviate_tpu_torch.index.interface import VectorIndex
 
 __all__ = ["VectorIndex", "new_vector_index"]
-
-# index types of the JAX package that this port does not serve yet, and
-# the ROADMAP item that brings each
-_LATER = {
-    "hnsw": "the native CPU graph engine (ROADMAP queue 1, item 16)",
-}
-
 
 def new_vector_index(config, shard_path: str, shard_name: str = "", device=None,
                      persist: bool = True, metrics=None, class_name: str = ""):
@@ -29,6 +24,12 @@ def new_vector_index(config, shard_path: str, shard_name: str = "", device=None,
         from weaviate_tpu_torch.index.noop import NoopIndex
 
         return NoopIndex(config)
+    if t == "hnsw":
+        # a host engine: it takes no device
+        from weaviate_tpu_torch.index.hnsw import HnswIndex
+
+        return HnswIndex(config, shard_path, shard_name, metrics=metrics,
+                         persist=persist, class_name=class_name)
     if t in ("hnsw_tpu", "flat"):
         from weaviate_tpu_torch.index.gpu import GpuVectorIndex
 
@@ -39,6 +40,4 @@ def new_vector_index(config, shard_path: str, shard_name: str = "", device=None,
 
         return MeshVectorIndex(config, shard_path, shard_name, device=device,
                                persist=persist, metrics=metrics, class_name=class_name)
-    if t in _LATER:
-        raise ValueError(f"vectorIndexType {t!r} is not ported yet: {_LATER[t]}")
     raise ValueError(f"unknown vector index type {t!r}")

@@ -7,18 +7,19 @@ config parser injected), objects/batch managers, traverser/explorer,
 aggregator, GraphQL executor, auth, metrics. The REST/gRPC layers only ever
 see this object.
 
-The port's App differs from the JAX package's in four ways:
+The port's App differs from the JAX package's in three ways:
 - a `device` keyword, passed to the DB and from there to every Shard's
   index; None (the default) is the CUDA card, and the App raises at once
   when torch sees none unless the caller passes device="cpu";
 - the module provider (ENABLE_MODULES, or one the caller injects) gets the
   same device, where featureProjection's t-SNE runs;
 - the fused-dispatch and IVF toggles go to the port's index
-  (`index/gpu.py`);
-- it refuses, with a ValueError naming the ROADMAP item that brings it,
-  a cluster config, CLUSTER_HOSTNAME or CLUSTER_JOIN (queue 1 item 15),
-  which the port does not serve yet. Without them the reference App runs
-  no cluster either, so the default App is whole.
+  (`index/gpu.py`).
+A cluster config (CLUSTER_HOSTNAME, CLUSTER_JOIN) builds the port's
+ClusterNode on the App's device, so every shard of a cluster node keeps its
+index on that card. Several Apps in one process share the process-wide
+toggles above (and the control plane and the tracer): give the nodes of one
+process the same config.
 TPU_DEVICE_MESH_SHARDS is accepted and reported in the config digest, as
 the reference does; it drives nothing there either. The multi-device mesh
 is a class's `vectorIndexType: "hnsw_tpu_mesh"` (`index/mesh.py`).
@@ -42,21 +43,11 @@ from weaviate_tpu_torch.usecases.traverser import Explorer, Traverser
 from weaviate_tpu_torch.version import __version__ as VERSION
 
 
-def _refuse_unported(config: Config) -> None:
-    """Raise a ValueError naming the ROADMAP item that brings whatever the
-    config asks for that the port does not serve yet."""
-    if config.cluster.hostname or config.cluster.join:
-        raise ValueError("CLUSTER_HOSTNAME/CLUSTER_JOIN: the cluster, "
-                         "replication and backup transfer (cluster/) are "
-                         "not ported yet: ROADMAP queue 1 item 15")
-
-
 class App:
     def __init__(self, config: Optional[Config] = None, data_path: Optional[str] = None,
                  metrics=None, modules=None, device=None):
         # no config given => read the process environment (environment.go)
         self.config = config or load_config()
-        _refuse_unported(self.config)
         # the card unless the caller names the CPU; no card => raise now
         self.device = resolve_device(device)
         path = data_path or self.config.persistence.data_path
@@ -245,14 +236,56 @@ class App:
         else:
             self.fault_injector = None
 
-        # single node: the cluster graph (CLUSTER_HOSTNAME/CLUSTER_JOIN)
-        # was refused above
-        self.cluster_node = None
-        self.db = DB(path, metrics=self.metrics,
-                     store_opts=self._store_opts(), device=self.device)
-        self.schema = SchemaManager(
-            os.path.join(path, "schema.json"), migrator=self.db,
-            default_vectorizer=self.config.default_vectorizer_module)
+        # distributed deployments (CLUSTER_HOSTNAME/CLUSTER_JOIN set) build
+        # the full cluster graph: membership, cluster-API listener, schema
+        # 2PC, replication, scaler (configure_api.go startupRoutine's
+        # cluster.Init + clusterapi.Serve path). CLUSTER_JOIN entries are
+        # "name@host:port".
+        cl_cfg = self.config.cluster
+        if cl_cfg.hostname or cl_cfg.join:
+            from weaviate_tpu_torch.cluster.node import ClusterNode
+
+            node_name = cl_cfg.hostname or "node-0"
+            # "name@host:port" entries are a static registry; bare
+            # "host:port" entries are gossip SEEDS (memberlist-style
+            # auto-discovery: the rest of the cluster is learned over UDP)
+            peers = {}
+            seeds = []
+            for item in cl_cfg.join:
+                if "@" in item:
+                    pname, phost = item.split("@", 1)
+                    peers[pname] = phost
+                elif item.strip():
+                    seeds.append(item.strip())
+            node_names = sorted(set(peers) | {node_name})
+            self.cluster_node = ClusterNode(
+                path,
+                node_name,
+                node_names=node_names,
+                bind_host="0.0.0.0",  # peers dial in from other machines
+                bind_port=cl_cfg.data_bind_port,
+                metrics=self.metrics,
+                default_vectorizer=self.config.default_vectorizer_module,
+                store_opts=self._store_opts(),
+                enable_gossip=bool(seeds) or cl_cfg.gossip,
+                gossip_bind_host="0.0.0.0",
+                gossip_bind_port=max(cl_cfg.gossip_bind_port, 0),
+                device=self.device,
+            )
+            self.cluster_node.start()
+            self.cluster_node.join(peers)
+            self.cluster_node.join_gossip(seeds)
+            if not cl_cfg.ignore_schema_sync:
+                self.cluster_node.sync_schema()
+            self.db = self.cluster_node.db
+            self.schema = self.cluster_node.schema
+        else:
+            self.cluster_node = None
+            self.db = DB(path, metrics=self.metrics,
+                         store_opts=self._store_opts(), device=self.device)
+            self.schema = SchemaManager(
+                os.path.join(path, "schema.json"), migrator=self.db,
+                default_vectorizer=self.config.default_vectorizer_module)
         # modules: explicit injection wins; else built from ENABLE_MODULES
         # (registerModules, configure_api.go:471); either way their device
         # work runs on the App's device
@@ -384,7 +417,16 @@ class App:
         self.authorizer = Authorizer(self.config.authz)
         from weaviate_tpu_torch.usecases.backup import BackupScheduler
 
-        self.backup_scheduler = BackupScheduler(self.db, self.schema, self.modules)
+        if self.cluster_node is not None:
+            self.backup_scheduler = BackupScheduler(
+                self.db, self.schema, self.modules,
+                node_name=self.cluster_node.node_name,
+                cluster=self.cluster_node.cluster,
+                node_client=self.cluster_node.transfer_client,
+            )
+            self.cluster_node.api.backup = self.backup_scheduler
+        else:
+            self.backup_scheduler = BackupScheduler(self.db, self.schema, self.modules)
         from weaviate_tpu_torch.usecases.classification import Classifier
 
         self.classifier = Classifier(self.db, self.schema, self.modules)
@@ -523,4 +565,7 @@ class App:
         if self.serving_pool is not None:
             self.serving_pool.shutdown(wait=False)
         self.disk_monitor.shutdown()
-        self.db.shutdown()
+        if self.cluster_node is not None:
+            self.cluster_node.shutdown()
+        else:
+            self.db.shutdown()

@@ -37,17 +37,23 @@ _lib_failed = False
 _lib_lock = threading.Lock()
 
 
-def so_path(src_path: str, stem: str) -> str:
-    """build/native/lib<stem>_<hash of the source>.so for native/<src>."""
+def so_path(src_path: str, stem: str, flags: Sequence[str] = ()) -> str:
+    """build/native/lib<stem>_<hash>.so for native/<src>, the hash over the
+    source and the extra compiler flags (a library built with other flags,
+    say without -fopenmp, is never reused)."""
+    h = hashlib.sha256()
     with open(src_path, "rb") as f:
-        key = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(_NATIVE_DIR, f"lib{stem}_{key}.so")
+        h.update(f.read())
+    for flag in flags:
+        h.update(b"\0" + flag.encode())
+    return os.path.join(_NATIVE_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build_host_library(src_path: str, stem: str) -> str:
-    """Build src_path with the host compiler into so_path(src_path, stem)
-    unless it is there; -> its path. Raises when the build fails."""
-    out = so_path(src_path, stem)
+def build_host_library(src_path: str, stem: str, flags: Sequence[str] = ()) -> str:
+    """Build src_path with the host compiler, plus the extra `flags`, into
+    so_path(src_path, stem, flags) unless it is there; -> its path. Raises
+    when the build fails."""
+    out = so_path(src_path, stem, flags)
     if not os.path.exists(out):
         os.makedirs(_NATIVE_DIR, exist_ok=True)
         # a private temporary file renamed into place: concurrent first
@@ -56,8 +62,8 @@ def build_host_library(src_path: str, stem: str) -> str:
         os.close(fd)
         try:
             subprocess.run(
-                ["g++", "-O3", "-march=native", "-std=c++17", "-shared",
-                 "-fPIC", "-o", tmp, src_path],
+                ["g++", "-O3", "-march=native", "-std=c++17", *flags,
+                 "-shared", "-fPIC", "-o", tmp, src_path],
                 check=True, capture_output=True)
             os.replace(tmp, out)
         finally:
