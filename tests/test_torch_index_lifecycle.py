@@ -395,7 +395,8 @@ def test_dispatch_facts(tmp_path):
             idx.search_by_vectors(q, K, allow)
             shape = idx.pop_dispatch_shape()
             assert shape.tier == tier and shape.fetches == 1 and shape.fused
-            assert shape.device_ms >= 0.0 and shape.batch == B
+            # the blocked fetch; no CUDA events time the device on the CPU
+            assert shape.fetch_ms >= 0.0 and shape.device_ms == -1.0 and shape.batch == B
             assert idx.pop_dispatch_shape() is None  # reading clears it
     finally:
         tracing.unconfigure(tracer)

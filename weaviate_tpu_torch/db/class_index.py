@@ -27,6 +27,7 @@ from weaviate_tpu_torch.db.shard import SearchResult, Shard
 from weaviate_tpu_torch.entities.filters import LocalFilter
 from weaviate_tpu_torch.entities.schema import ClassDef
 from weaviate_tpu_torch.entities.storobj import StorObj
+from weaviate_tpu_torch.monitoring import tracing
 
 
 def _merge_shard_results(
@@ -187,22 +188,25 @@ class ClassIndex:
         groups = self._group_by_shard([o.uuid for o in objs])
         errs: list[Optional[Exception]] = [None] * len(objs)
 
+        span = tracing.current_span()  # the request's, into the pool threads
+
         def run(name: str, idxs: list[int]):
-            batch = [objs[i] for i in idxs]
-            if self._replicated(name):
-                try:
-                    sub = self.replicator.put_batch(self.class_name, name, batch, cl)
-                    sub = [RuntimeError(e) if e else None for e in sub]
-                except Exception as e:  # noqa: BLE001 — per-batch fault isolation
-                    sub = [e] * len(batch)
-            else:
-                shard = self._local_shard(name)
-                if shard is not None:
-                    sub = shard.put_batch(batch)
+            with tracing.resume(span):
+                batch = [objs[i] for i in idxs]
+                if self._replicated(name):
+                    try:
+                        sub = self.replicator.put_batch(self.class_name, name, batch, cl)
+                        sub = [RuntimeError(e) if e else None for e in sub]
+                    except Exception as e:  # noqa: BLE001 — per-batch fault isolation
+                        sub = [e] * len(batch)
                 else:
-                    sub = self.remote.put_batch(self.class_name, name, batch)
-            for i, e in zip(idxs, sub):
-                errs[i] = e
+                    shard = self._local_shard(name)
+                    if shard is not None:
+                        sub = shard.put_batch(batch)
+                    else:
+                        sub = self.remote.put_batch(self.class_name, name, batch)
+                for i, e in zip(idxs, sub):
+                    errs[i] = e
 
         futs = [self._pool.submit(run, n, idxs) for n, idxs in groups.items()]
         for f in futs:

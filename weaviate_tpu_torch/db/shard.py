@@ -131,6 +131,12 @@ def filter_signature(flt: Optional[LocalFilter]) -> Optional[str]:
         return None
 
 
+def _no_cpu() -> int:
+    """Stands in for time.thread_time_ns where no dispatch record takes a
+    phase's CPU time (the tracer off, or this request unsampled)."""
+    return 0
+
+
 def _uuid_bytes(u: str) -> bytes:
     # canonical-form fast path (cheaper than uuid.UUID); anything else — braces,
     # urn: prefix — takes the full parser. The 32-hex-after-dash-strip check
@@ -325,8 +331,10 @@ class Shard:
     ) -> list[Optional[Exception]]:
         """Batch import (shard_write_batch_objects.go): LSM + inverted per
         object host-side, vectors land on the device as ONE batched add.
-        preserve_times: see put_object (replica apply path)."""
-        with self._lock:
+        preserve_times: see put_object (replica apply path). Traced as
+        `shard.put_batch` with the steps `lsm.put`, `inverted.add` and
+        `index.add_batch`, once a batch."""
+        with self._lock, tracing.span("shard.put_batch"):
             self._check_writable()
             self._write_gen += 1
             errs: list[Optional[Exception]] = [None] * len(objs)
@@ -380,10 +388,12 @@ class Shard:
                 except Exception as e:  # per-object error isolation (batch semantics)
                     errs[i] = e
             try:
-                self.objects.put_many(obj_puts.items())
-                self.docid_lookup.put_many(doc_puts.values())
-                inv_errs = self.inverted.add_objects_batch(
-                    [(d, p) for d, (p, _) in inv_items.items()])
+                with tracing.span("lsm.put"):
+                    self.objects.put_many(obj_puts.items())
+                    self.docid_lookup.put_many(doc_puts.values())
+                with tracing.span("inverted.add"):
+                    inv_errs = self.inverted.add_objects_batch(
+                        [(d, p) for d, (p, _) in inv_items.items()])
             except Exception as e:  # noqa: BLE001 — store-level IO failure
                 # the batched writes sit outside the per-object try: report
                 # the failure on every object instead of aborting the caller,
@@ -404,7 +414,8 @@ class Shard:
                 fresh_ids = [fresh_ids[j] for j in keep]
                 fresh_vecs = [fresh_vecs[j] for j in keep]
                 try:
-                    self.vector_index.add_batch(fresh_ids, np.stack(fresh_vecs))
+                    with tracing.span("index.add_batch"):
+                        self.vector_index.add_batch(fresh_ids, np.stack(fresh_vecs))
                 except Exception:
                     # keep per-object error isolation: retry row-by-row so one
                     # bad vector doesn't fail the whole batch post-LSM-write
@@ -653,19 +664,22 @@ class Shard:
     ) -> list[list[SearchResult]]:
         m = self.metrics
         cls = self.class_def.name
-        t0 = time.perf_counter()
+        # phase edges on the tracer's clock; the thread's CPU time only
+        # when a dispatch record takes it
+        cpu = time.thread_time_ns if rec is not None else _no_cpu
+        t0, c0 = time.perf_counter_ns(), cpu()
         allow = self.build_allow_list(flt)
-        t1 = time.perf_counter()
-        filter_ms = (t1 - t0) * 1000.0 if flt is not None else None
+        t1 = time.perf_counter_ns()
+        filter_ms = (t1 - t0) / 1e6 if flt is not None else None
         if filter_ms is not None:
             if rec is not None:
-                rec.phase("filter", filter_ms)
+                rec.phase("filter", t0, t1, cpu() - c0)
             if m is not None:
                 m.filtered_vector_filter.labels(cls, self.name).observe(
                     filter_ms)
         if allow is not None and len(allow) == 0:
             return [[] for _ in range(q.shape[0])]
-        t1 = time.perf_counter()
+        t1, c1 = time.perf_counter_ns(), cpu()
         if target_distance is not None:
             row_ids, row_dists = self._search_by_vectors_distance(
                 q, target_distance, k, allow)
@@ -673,12 +687,12 @@ class Shard:
                 dispatched[0] = True
             lock_wait = self._pop_lock_wait()
             # widening runs several dispatches; the popped shape (and so
-            # the ledger/roofline facts) describes the LAST round
+            # the ledger facts and steps) describes the LAST round
             shape = self._pop_dispatch_shape()
             # target-distance rounds are ragged re-dispatches of the same
             # rows — not a representative recall sample; drop the pin
             self._pop_audit_snap()
-            t2 = time.perf_counter()
+            t2, c2 = time.perf_counter_ns(), cpu()
             # pad the ragged per-row results back to one rectangle so the
             # winners hydrate in ONE batched pass (inf marks absent slots,
             # exactly the device kernels' padding convention)
@@ -689,45 +703,29 @@ class Shard:
                 ids[i, : len(ri)] = ri
                 dists[i, : len(ri)] = rd
             hydrated = self._hydrate_batch(ids, dists, include_vector)
-            t3 = time.perf_counter()
-            if rec is not None:
-                rec.phase("device_search", (t2 - t1) * 1000.0)
-                rec.phase("hydrate", (t3 - t2) * 1000.0)
-            if shape is not None:
-                if filter_ms is not None:
-                    shape.filter_ms = filter_ms
-                shape.hydrate_ms = (t3 - t2) * 1000.0
-            self._trace_dispatch_facts(rec, q.shape[0], k, lock_wait, shape)
-            if m is not None:
-                m.filtered_vector_search.labels(cls, self.name).observe(
-                    (t2 - t1) * 1000.0)
-                m.filtered_vector_objects.labels(cls, self.name).observe(
-                    (t3 - t2) * 1000.0)
-                m.vector_index_ops.labels("search", cls, self.name).inc(q.shape[0])
-                m.query_dimensions.labels("nearVector", "search", cls).inc(
-                    int(q.shape[0] * q.shape[1]))
-            return hydrated
-        ids, dists = self.vector_index.search_by_vectors(q, k, allow)
-        if dispatched is not None:
-            dispatched[0] = True
-        lock_wait = self._pop_lock_wait()
-        shape = self._pop_dispatch_shape()
-        self._maybe_audit(self._pop_audit_snap(), q, k, allow, ids, dists)
-        t2 = time.perf_counter()
-        hydrated = self._hydrate_batch(ids, dists, include_vector)
-        t3 = time.perf_counter()
+        else:
+            ids, dists = self.vector_index.search_by_vectors(q, k, allow)
+            if dispatched is not None:
+                dispatched[0] = True
+            lock_wait = self._pop_lock_wait()
+            shape = self._pop_dispatch_shape()
+            self._maybe_audit(self._pop_audit_snap(), q, k, allow, ids, dists)
+            t2, c2 = time.perf_counter_ns(), cpu()
+            hydrated = self._hydrate_batch(ids, dists, include_vector)
+        t3 = time.perf_counter_ns()
         if rec is not None:
-            rec.phase("device_search", (t2 - t1) * 1000.0)
-            rec.phase("hydrate", (t3 - t2) * 1000.0)
+            rec.phase("device_search", t1, t2, c2 - c1,
+                      shape.spans if shape is not None else ())
+            rec.phase("hydrate", t2, t3, cpu() - c2)
         if shape is not None:
             if filter_ms is not None:
                 shape.filter_ms = filter_ms
-            shape.hydrate_ms = (t3 - t2) * 1000.0
+            shape.hydrate_ms = (t3 - t2) / 1e6
         self._trace_dispatch_facts(rec, q.shape[0], k, lock_wait, shape)
         if m is not None:
-            m.filtered_vector_search.labels(cls, self.name).observe((t2 - t1) * 1000.0)
+            m.filtered_vector_search.labels(cls, self.name).observe((t2 - t1) / 1e6)
             m.filtered_vector_objects.labels(cls, self.name).observe(
-                (t3 - t2) * 1000.0)
+                (t3 - t2) / 1e6)
             m.vector_index_ops.labels("search", cls, self.name).inc(q.shape[0])
             m.query_dimensions.labels("nearVector", "search", cls).inc(
                 int(q.shape[0] * q.shape[1]))
@@ -824,31 +822,23 @@ class Shard:
     def _trace_dispatch_facts(self, rec, rows: int, k: int,
                               lock_wait_ms: Optional[float] = None,
                               shape=None) -> None:
-        """Dispatch-level facts for the trace: the padded width (what the
-        jit cache is keyed on — padding waste = 1 - rows/padded), whether
-        this (index, padded, k) shape is the first sighting since tracing
-        began (a proxy for "this dispatch paid the compile"), the index
-        snapshot generation the dispatch read (`snapshot_gen` — correlates
-        a slow query with a concurrent write burst), and the ms the
-        snapshot read waited on the writer lock (`lock_wait_ms`, 0.0 on the
-        lock-free fast path).
+        """Dispatch-level facts for the trace: the padded width (padding
+        waste = 1 - rows/padded), the index snapshot generation the
+        dispatch read (`snapshot_gen` — correlates a slow query with a
+        concurrent write burst), and the ms the snapshot read waited on
+        the writer lock (`lock_wait_ms`, 0.0 on the lock-free fast path).
 
         Called for EVERY dispatch while the tracer is up — even when this
-        one carries no sampled rider (rec None): under sampling, the
-        dispatch that actually pays a shape's compile is usually an
-        unsampled one, and skipping registration would make the NEXT
-        sampled dispatch of the warm shape falsely read first-seen."""
+        one carries no sampled rider (rec None): the perf window counts
+        every dispatch, whatever the trace sampling."""
         if tracing.get_tracer() is None:
             return
         vidx = self.vector_index
-        pw = getattr(vidx, "padded_width", None)
-        padded = pw(rows) if pw is not None else rows
-        first = tracing.note_shape((id(vidx), int(padded), int(k)))
         if shape is not None:
-            # perf attribution is FULL-coverage like shape registration:
-            # every dispatch feeds the rolling window (duty cycle, window
-            # roofline, ledger percentiles) even when no rider was sampled
-            # — trace sampling thins /debug/traces, never /debug/perf
+            # perf attribution is FULL-coverage: every dispatch feeds the
+            # rolling window (duty cycle, window roofline, ledger
+            # percentiles) even when no rider was sampled — trace
+            # sampling thins /debug/traces, never /debug/perf
             w = perf.get_window()
             if w is not None:
                 try:
@@ -856,9 +846,9 @@ class Shard:
                 except Exception:  # noqa: BLE001 — must not break serving
                     pass
         if rec is not None:
-            rec.fact(padded_rows=int(padded), shard=self.name,
-                     class_name=self.class_def.name,
-                     jit_shape_first_seen=bool(first))
+            pw = getattr(vidx, "padded_width", None)
+            rec.fact(padded_rows=int(pw(rows) if pw is not None else rows),
+                     shard=self.name, class_name=self.class_def.name)
             sg = getattr(vidx, "snapshot_gen", None)
             if sg is not None:
                 rec.fact(snapshot_gen=int(sg))
@@ -958,12 +948,17 @@ class Shard:
                 q, k, flt, None, include_vector, "breaker_open")
         m = self.metrics
         cls = self.class_def.name
-        filter_ms = None
+        filter_ms = filter_span = None
         allow = None
         if flt is not None:
-            t0 = time.perf_counter()
+            traced = tracing.get_tracer() is not None
+            t0 = time.perf_counter_ns()
+            c0 = time.thread_time_ns() if traced else 0
             allow = self.build_allow_list(flt)
-            filter_ms = (time.perf_counter() - t0) * 1000.0
+            t1 = time.perf_counter_ns()
+            filter_ms = (t1 - t0) / 1e6
+            if traced:
+                filter_span = (t0, t1, time.thread_time_ns() - c0)
             if m is not None:
                 m.filtered_vector_filter.labels(cls, self.name).observe(
                     filter_ms)
@@ -1005,9 +1000,10 @@ class Shard:
             rec = None
             try:
                 rec = tracing.dispatch_record(q.shape[0])
-                if rec is not None and filter_ms is not None:
-                    rec.phase("filter", filter_ms)
-                t0 = time.perf_counter()
+                if rec is not None and filter_span is not None:
+                    rec.phase("filter", *filter_span)
+                cpu = time.thread_time_ns if rec is not None else _no_cpu
+                t0, c0 = time.perf_counter_ns(), cpu()
                 try:
                     ids, dists = finalize()
                 except Exception as e:
@@ -1027,23 +1023,28 @@ class Shard:
                     # a finalize() success IS a device success
                     self._record_device_success(br)
                 self._maybe_audit(audit_snap, q, k, allow, ids, dists)
-                t1 = time.perf_counter()
+                t1, c1 = time.perf_counter_ns(), cpu()
                 hydrated = self._hydrate_batch(ids, dists, include_vector)
-                t2 = time.perf_counter()
+                t2 = time.perf_counter_ns()
                 if rec is not None:
-                    rec.phase("device_search", (t1 - t0) * 1000.0)
-                    rec.phase("hydrate", (t2 - t1) * 1000.0)
+                    # device_search = the time blocked on the result: of
+                    # the dispatch's steps it holds the fetch (the
+                    # snapshot read, staging and launches ran at enqueue)
+                    rec.phase("device_search", t0, t1, c1 - c0,
+                              [st for st in shape.spans if st[1] >= t0]
+                              if shape is not None else ())
+                    rec.phase("hydrate", t1, t2, cpu() - c1)
                 if shape is not None:
                     if filter_ms is not None:
                         shape.filter_ms = filter_ms
-                    shape.hydrate_ms = (t2 - t1) * 1000.0
+                    shape.hydrate_ms = (t2 - t1) / 1e6
                 self._trace_dispatch_facts(rec, q.shape[0], k, lock_wait,
                                            shape)
                 if m is not None:
                     m.filtered_vector_search.labels(cls, self.name).observe(
-                        (t1 - t0) * 1000.0)
+                        (t1 - t0) / 1e6)
                     m.filtered_vector_objects.labels(cls, self.name).observe(
-                        (t2 - t1) * 1000.0)
+                        (t2 - t1) / 1e6)
                     m.vector_index_ops.labels("search", cls, self.name).inc(q.shape[0])
                     m.query_dimensions.labels("nearVector", "search", cls).inc(
                         int(q.shape[0] * q.shape[1]))
@@ -1112,25 +1113,27 @@ class Shard:
         rec = None
         try:
             rec = tracing.dispatch_record(q.shape[0])
-            t1 = time.perf_counter()
+            cpu = time.thread_time_ns if rec is not None else _no_cpu
+            t1, c1 = time.perf_counter_ns(), cpu()
             ids, dists = self.vector_index.search_by_vectors(q, k)
             lock_wait = self._pop_lock_wait()
             shape = self._pop_dispatch_shape()
             self._maybe_audit(self._pop_audit_snap(), q, k, None, ids,
                               dists)
-            t2 = time.perf_counter()
+            t2, c2 = time.perf_counter_ns(), cpu()
             out = self.hydrate_raw_packed(ids, dists)
-            t3 = time.perf_counter()
+            t3 = time.perf_counter_ns()
             if rec is not None:
-                rec.phase("device_search", (t2 - t1) * 1000.0)
-                rec.phase("hydrate", (t3 - t2) * 1000.0)
+                rec.phase("device_search", t1, t2, c2 - c1,
+                          shape.spans if shape is not None else ())
+                rec.phase("hydrate", t2, t3, cpu() - c2)
             if shape is not None:
-                shape.hydrate_ms = (t3 - t2) * 1000.0
+                shape.hydrate_ms = (t3 - t2) / 1e6
             self._trace_dispatch_facts(rec, q.shape[0], k, lock_wait, shape)
             if m is not None:
-                m.filtered_vector_search.labels(cls, self.name).observe((t2 - t1) * 1000.0)
+                m.filtered_vector_search.labels(cls, self.name).observe((t2 - t1) / 1e6)
                 m.filtered_vector_objects.labels(cls, self.name).observe(
-                    (t3 - t2) * 1000.0)
+                    (t3 - t2) / 1e6)
                 m.vector_index_ops.labels("search", cls, self.name).inc(q.shape[0])
                 m.query_dimensions.labels("nearVector", "search", cls).inc(
                     int(q.shape[0] * q.shape[1]))

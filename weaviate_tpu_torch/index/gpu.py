@@ -111,7 +111,8 @@ from weaviate_tpu_torch.config.config import (IVF_TOP_P_BUCKETS, PQ4_FUNNEL_C_BU
 from weaviate_tpu_torch.device import resolve_device
 from weaviate_tpu_torch.entities import vectorindex as vi
 from weaviate_tpu_torch.index.interface import AllowList, VectorIndex
-from weaviate_tpu_torch.monitoring import costmodel, incidents, memory, quality, tracing
+from weaviate_tpu_torch.monitoring import (costmodel, incidents, memory, profiling, quality,
+                                           tracing)
 from weaviate_tpu_torch.ops import gmin_scan, pq4, pq_gmin
 from weaviate_tpu_torch.ops import ivf as ivf_ops
 from weaviate_tpu_torch.ops.distances import DISTANCE_FNS
@@ -305,22 +306,65 @@ class _PinnedStage:
         return self.buf.nbytes
 
 
+def _clock() -> tuple[int, int]:
+    """(perf_counter_ns, the calling thread's CPU ns): a dispatch step's
+    edge, on the clock the tracer's spans use."""
+    return time.perf_counter_ns(), time.thread_time_ns()
+
+
+def _step(name: str, since: tuple[int, int], steps=()) -> tuple:
+    """One step of a dispatch, from `since` (a _clock()) to now, as the
+    tracer's dispatch record takes it (costmodel.DispatchShape.spans)."""
+    t, c = _clock()
+    return (name, since[0], t, c - since[1], tuple(steps))
+
+
+# timing event pairs an index keeps for reuse
+_EVENT_POOL_CAP = 16
+
+
 def _fetch_packed(packed: torch.Tensor, shape=None) -> np.ndarray:
     """The ONE blocking device->host fetch of a dispatch's finalize (on the
     card it waits for the dispatch's stream, the upload of its queries
     included). With a perf shape attached (tracer up), stamps the fetch
-    duration as the ledger's `device` stage; without one this is exactly
-    the copy. The sanitizer's device-sync plane patches this function."""
+    duration as the ledger's `fetch` stage and the `index.fetch` step, and
+    on the card the device's time between the dispatch's two CUDA events
+    (`device_ms`): the second is recorded here, after the last kernel and
+    before the copy. Without a shape this is exactly the copy. The
+    sanitizer's device-sync plane patches this function."""
     if shape is None:
         return packed.cpu().numpy()
+    if shape.events is not None:
+        if profiling.hold_off():  # else a profiler session began: no reading
+            try:
+                shape.events[1].record(torch.cuda.current_stream(packed.device))
+            finally:
+                profiling.let_go()
+        else:
+            if len(shape.events[2]) < _EVENT_POOL_CAP:
+                shape.events[2].append(shape.events[:2])
+            shape.events = None
+    since = _clock()
     t0 = time.perf_counter()
     out = packed.cpu().numpy()
     shape.fetches += 1  # the fused-dispatch invariant counts these
     shape.t_fetch = time.perf_counter()
-    shape.device_ms = (shape.t_fetch - t0) * 1000.0
-    # duty-cycle anchor: the in-flight interval ends HERE, not at the
-    # perf window's record call (hydration runs in between)
+    shape.fetch_ms = (shape.t_fetch - t0) * 1000.0
+    # duty-cycle anchor: the in-flight interval ends HERE, not at the perf
+    # window's record call (hydration runs in between)
     shape.t_fetch_mono = time.monotonic()
+    shape.spans.append(_step("index.fetch", since))
+    if shape.events is not None:
+        before, after, pool = shape.events
+        shape.events = None
+        if profiling.hold_off():
+            try:
+                after.synchronize()  # complete already: the copy came after it
+                shape.device_ms = before.elapsed_time(after)
+            finally:
+                profiling.let_go()
+        if len(pool) < _EVENT_POOL_CAP:
+            pool.append((before, after))
     return out
 
 
@@ -1013,6 +1057,9 @@ class GpuVectorIndex(VectorIndex):
         # the CPU
         self._stage_free: dict[tuple[int, int], list] = {}
         self._stage_lock = sanitizers.register_lock(threading.Lock(), "index.tpu.stage_pool")
+        # (before the upload, after the last kernel) timing event pairs of
+        # traced dispatches on the card; list pop/append need no lock
+        self._event_pool: list = []
         # host f32 copy of the store (+ its row sq-norms) for the breaker's
         # fallback plane (search_by_vectors_host), built once per snapshot
         # generation — (gen, rows, sq_norms)
@@ -1598,23 +1645,27 @@ class GpuVectorIndex(VectorIndex):
         """The snapshot a search dispatches on: lock-free when nothing is
         staged; otherwise take the write lock once, flush and publish (the
         read-your-writes check, paid by the first read after a write) and
-        record the wait for `pop_read_lock_wait`."""
+        record the wait for `pop_read_lock_wait`. With the tracer up the
+        read is the dispatch's `index.snapshot` step."""
+        since = _clock() if tracing.get_tracer() is not None else None
         snap = self._snap
         if snap is not None and self._published_gen == self._staged_gen:
             self._read_local.lock_wait_ms = 0.0
-            return snap
-        t0 = time.perf_counter()
-        with self._lock:
-            wait_ms = (time.perf_counter() - t0) * 1000.0
-            self._flush_pending()
-            if self._snap is None or self._published_gen != self._staged_gen:
-                self._publish_snapshot()
-            snap = self._snap
-        self._read_local.lock_wait_ms = wait_ms
-        m = self.metrics
-        if m is not None:
-            cls, shard = self._metric_labels()
-            m.index_lock_wait.labels(cls, shard).observe(wait_ms)
+        else:
+            t0 = time.perf_counter()
+            with self._lock:
+                wait_ms = (time.perf_counter() - t0) * 1000.0
+                self._flush_pending()
+                if self._snap is None or self._published_gen != self._staged_gen:
+                    self._publish_snapshot()
+                snap = self._snap
+            self._read_local.lock_wait_ms = wait_ms
+            m = self.metrics
+            if m is not None:
+                cls, shard = self._metric_labels()
+                m.index_lock_wait.labels(cls, shard).observe(wait_ms)
+        if since is not None:
+            self._read_local.snap_step = _step("index.snapshot", since)
         return snap
 
     def pop_read_lock_wait(self) -> float:
@@ -1926,23 +1977,25 @@ class GpuVectorIndex(VectorIndex):
             elif vectors.shape[1] != self.dim:
                 raise ValueError(f"dim mismatch: index has {self.dim}, got {vectors.shape[1]}")
             if self._log is not None:
-                self._log.append_add_batch(doc_arr, vectors)
+                with tracing.span("index.vector_log"):
+                    self._log.append_add_batch(doc_arr, vectors)
             t0 = time.perf_counter()
             count = vectors.shape[0]
-            self._staged_gen += 1
-            self._mark_staged()
-            self._ensure_capacity(self.n + count + _CHUNK)
-            self._cow_host_state()
-            self._write_block(vectors, self.n)
-            self._assign_slots(doc_arr, self.n)
-            self.n += count
-            self.live += count
-            # deletes staged before this batch land in the same snapshot
-            # (the JAX package's add_batch publishes without them)
-            self._apply_pending_tombs()
-            self._maybe_declared_compress()
-            self._maybe_ivf_train()
-            self._publish_snapshot()
+            with tracing.span("index.device_write"):
+                self._staged_gen += 1
+                self._mark_staged()
+                self._ensure_capacity(self.n + count + _CHUNK)
+                self._cow_host_state()
+                self._write_block(vectors, self.n)
+                self._assign_slots(doc_arr, self.n)
+                self.n += count
+                self.live += count
+                # deletes staged before this batch land in the same snapshot
+                # (the JAX package's add_batch publishes without them)
+                self._apply_pending_tombs()
+                self._maybe_declared_compress()
+                self._maybe_ivf_train()
+                self._publish_snapshot()
             self._obs_index("add", "batch", t0, ops=count)
             led = memory.get_ledger()
             if led is not None:
@@ -2024,7 +2077,7 @@ class GpuVectorIndex(VectorIndex):
         self._blk_cache[name] = (src, gen, blk)
         return blk
 
-    def _prep_queries_staged(self, vectors: np.ndarray):
+    def _prep_queries_staged(self, vectors: np.ndarray, shape=None):
         """Query prep (f32 cast, cosine normalization, bucket padding) into
         a reusable staging buffer from the per-(padded batch, dim) pool,
         then the upload. On the card the buffer is pinned host memory and
@@ -2035,7 +2088,11 @@ class GpuVectorIndex(VectorIndex):
         entry must go back through _release_stage only AFTER the
         dispatch's blocking fetch (the finalize wrapper does): by then the
         copy has read the buffer (on the CPU: the scan has), so the next
-        checkout may overwrite it."""
+        checkout may overwrite it. With a perf shape (tracer up) this is
+        the `index.stage` step, a new buffer its `index.stage_alloc` step
+        and a count in `shape.stage_alloc`; on the card the dispatch's
+        first CUDA event is recorded before the upload."""
+        since = _clock() if shape is not None else None
         q = np.asarray(vectors, dtype=np.float32)
         if q.ndim == 1:
             q = q[None, :]
@@ -2046,9 +2103,14 @@ class GpuVectorIndex(VectorIndex):
             lst = self._stage_free.get(key)
             entry = lst.pop() if lst else None
         pinned = self.device.type == "cuda"
+        alloc = ()
         if entry is None:
+            t_alloc = _clock() if shape is not None else None
             entry = (_PinnedStage(torch.empty(key, dtype=torch.float32, pin_memory=True))
                      if pinned else np.empty(key, np.float32))
+            if shape is not None:
+                shape.stage_alloc += 1
+                alloc = (_step("index.stage_alloc", t_alloc),)
         elif pinned and entry.uploaded is not None:
             entry.uploaded.synchronize()  # its last upload has read it (done already)
         buf = entry.buf.numpy() if pinned else entry
@@ -2060,10 +2122,29 @@ class GpuVectorIndex(VectorIndex):
         if bb != b:
             buf[b:] = 0.0
         if not pinned:
+            if shape is not None:
+                shape.spans.append(_step("index.stage", since, alloc))
             return torch.from_numpy(buf), b, entry
+        stream = torch.cuda.current_stream(self.device)
+        # no timing events while a profiler session is up: the capture
+        # times the device itself, and under its start and stop one such
+        # record aborted the process
+        if shape is not None and profiling.hold_off():
+            try:
+                try:
+                    pair = self._event_pool.pop()
+                except IndexError:
+                    pair = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+                shape.events = (*pair, self._event_pool)
+                pair[0].record(stream)
+            finally:
+                profiling.let_go()
         q_dev = entry.buf.to(self.device, non_blocking=True)
         entry.uploaded = torch.cuda.Event()
-        entry.uploaded.record(torch.cuda.current_stream(self.device))
+        entry.uploaded.record(stream)
+        if shape is not None:
+            shape.spans.append(_step("index.stage", since, alloc))
         return q_dev, b, entry
 
     def _release_stage(self, entry) -> None:
@@ -2158,12 +2239,6 @@ class GpuVectorIndex(VectorIndex):
         if np.shape(vectors)[-1] != snap.dim:
             raise ValueError(f"dim mismatch: index has {snap.dim}, got {np.shape(vectors)[-1]}")
         faults.fire("index.gpu.dispatch")
-        # perf-attribution shape (monitoring/costmodel.py): built ONLY
-        # while the tracer is up, stamped as the dispatch executes and
-        # popped by the shard on the dispatching thread
-        shape = None
-        t_enq0 = time.perf_counter() if tracing.get_tracer() is not None else 0.0
-        q, b, stage = self._prep_queries_staged(vectors)
         k_eff = min(k, snap.live)
         # the fused dispatch translates on the card from the snapshot's
         # doc-id column; the staged one (s2d None) on the host
@@ -2172,11 +2247,25 @@ class GpuVectorIndex(VectorIndex):
         # the partition-pruned plane: after the gather tier, before the
         # flat tiers (large allowLists compose through the packed words)
         ivf_plan = self._ivf_plan(snap, k_eff) if tier != costmodel.TIER_GATHER else None
-        if t_enq0:
-            shape = (self._ivf_shape(snap, ivf_plan, b, q.shape[0], k_eff)
+        # perf-attribution shape (monitoring/costmodel.py): built ONLY
+        # while the tracer is up, stamped as the dispatch executes and
+        # popped by the shard on the dispatching thread
+        shape = None
+        if tracing.get_tracer() is not None:
+            t_enq0 = time.perf_counter()
+            rows = 1 if np.ndim(vectors) == 1 else len(vectors)
+            shape = (self._ivf_shape(snap, ivf_plan, rows, _bucket_b(rows), k_eff)
                      if ivf_plan is not None
-                     else self._dispatch_shape(snap, tier, allow_list, b, q.shape[0], k_eff))
+                     else self._dispatch_shape(snap, tier, allow_list, rows, _bucket_b(rows),
+                                               k_eff))
             shape.backend = costmodel.detect_backend(self.device)
+            shape.t_start = t_enq0
+            snap_step = getattr(self._read_local, "snap_step", None)
+            if snap_step is not None:
+                self._read_local.snap_step = None
+                shape.spans.append(snap_step)
+        q, b, stage = self._prep_queries_staged(vectors, shape)
+        since = _clock() if shape is not None else None
         if tier == costmodel.TIER_GATHER:
             fin = self._dispatch_small_allow(snap, q, b, k_eff, allow_list, s2d, shape)
         elif ivf_plan is not None:
@@ -2188,9 +2277,8 @@ class GpuVectorIndex(VectorIndex):
                            if allow_list is not None else None)
             fin = self._dispatch_scan(snap, q, b, k_eff, allow_words, s2d, shape=shape)
         if shape is not None:
-            now = time.perf_counter()
-            shape.t_start = t_enq0
-            shape.enqueue_ms = (now - t_enq0) * 1000.0
+            shape.spans.append(_step("index.enqueue", since))
+            shape.enqueue_ms = (time.perf_counter() - shape.t_start) * 1000.0
             if s2d is not None:
                 # the fused-dispatch ledger invariant: one blocking fetch,
                 # no host translation

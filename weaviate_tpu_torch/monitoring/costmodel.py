@@ -126,20 +126,26 @@ class DispatchShape:
     ms, -1 = not measured):
       enqueue_ms     host time building + enqueueing the device work
                      (query prep, allowList pack, host gather)
-      device_ms      the ONE blocking device->host fetch (finalize)
-      finalize_ms    whole finalize() wall — device_ms + the host hop
+      fetch_ms       the ONE blocking device->host fetch (finalize)
+      finalize_ms    whole finalize() wall — fetch_ms + the host hop
       filter_ms      allowList build (shard, filtered dispatches)
       hydrate_ms     LSM result hydration (shard)
-    and the monotonic interval [t_start, t_end] from enqueue start to
-    fetch end — the in-flight-device interval the duty cycle integrates.
+      device_ms      on the card, the device's own time from the query
+                     upload to the last kernel (two CUDA events; -1 on
+                     the CPU) — what the duty cycle integrates
+    and the interval [t_start, t_end] from enqueue start to fetch end.
+    The index also records the steps of its dispatch in ``spans``
+    (``(name, start_ns, end_ns, thread cpu_ns, steps)``, perf_counter_ns)
+    and counts the staging buffers it had to allocate (``stage_alloc``).
     """
 
     __slots__ = ("tier", "n", "dim", "batch", "batch_padded",
                  "bytes_per_row", "k", "extra", "ndev",
-                 "enqueue_ms", "device_ms", "finalize_ms",
+                 "enqueue_ms", "fetch_ms", "device_ms", "finalize_ms",
                  "filter_ms", "hydrate_ms", "t_start", "t_end",
                  "t_fetch", "t_fetch_mono", "fused", "fetches",
-                 "translate_ms", "backend")
+                 "translate_ms", "backend", "spans", "events",
+                 "stage_alloc")
 
     def __init__(self, tier: str, n: int, dim: float, batch: int,
                  bytes_per_row: float, k: int = 0,
@@ -158,6 +164,7 @@ class DispatchShape:
         # work; per-chip attribution divides by ndev (monitoring/perf.py)
         self.ndev = max(int(ndev), 1)
         self.enqueue_ms = -1.0
+        self.fetch_ms = -1.0
         self.device_ms = -1.0
         self.finalize_ms = -1.0
         self.filter_ms = -1.0
@@ -186,6 +193,11 @@ class DispatchShape:
         # the PEAKS key of the device the dispatch runs on (the index sets
         # it; None: detect_backend's default device)
         self.backend: Optional[str] = None
+        self.spans: list = []
+        # the card's (before the upload, after the last kernel) CUDA event
+        # pair and the pool it goes back to after the fetch
+        self.events = None
+        self.stage_alloc = 0
 
     # -- analytic totals -----------------------------------------------------
 
@@ -219,9 +231,9 @@ class DispatchShape:
         accounted wall collapses toward zero (docs/performance.md
         "anatomy of a fused dispatch"). -1 when the split was not
         measured."""
-        if self.finalize_ms < 0.0 or self.device_ms < 0.0:
+        if self.finalize_ms < 0.0 or self.fetch_ms < 0.0:
             return -1.0
-        return max(self.finalize_ms - self.device_ms, 0.0)
+        return max(self.finalize_ms - self.fetch_ms, 0.0)
 
     def ledger(self) -> dict:
         """{phase: ms} of every measured host-overhead ledger stage."""
@@ -230,8 +242,8 @@ class DispatchShape:
             out["filter"] = self.filter_ms
         if self.enqueue_ms >= 0.0:
             out["enqueue"] = self.enqueue_ms
-        if self.device_ms >= 0.0:
-            out["device"] = self.device_ms
+        if self.fetch_ms >= 0.0:
+            out["fetch"] = self.fetch_ms
         hop = self.hop_ms()
         if hop >= 0.0:
             out["gather_hop"] = hop
@@ -349,25 +361,3 @@ def roofline_from_qps(qps, n, dim, batch, bytes_per_row,
     batches_per_s = qps / batch
     return roofline(flops_per_batch * batches_per_s,
                     bytes_per_batch * batches_per_s, 1.0, backend)
-
-
-# -- exact attribution split --------------------------------------------------
-
-def split_exact(total: int, rows: list, rows_total: int) -> list:
-    """Split an integer `total` (flops/bytes) across riders proportionally
-    to their `rows`, such that the parts SUM BIT-EXACTLY to the covered
-    fraction: part_i = round(T·c_i/R) - round(T·c_{i-1}/R) over cumulative
-    rows c — a telescoping sum, so when the riders cover all rows_total
-    rows, sum(parts) == total with no float residue (the flops/bytes twin
-    of the PR-3 device-time identity)."""
-    total = int(total)
-    rt = max(int(rows_total), 1)
-    out = []
-    cum = 0
-    prev = 0
-    for r in rows:
-        cum += int(r)
-        edge = (total * cum + rt // 2) // rt  # integer round-half-up
-        out.append(edge - prev)
-        prev = edge
-    return out

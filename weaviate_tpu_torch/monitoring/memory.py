@@ -743,8 +743,8 @@ class MemoryLedger:
             self._publishes += 1
 
     def note_write_shape(self, key: tuple) -> None:
-        """First sighting of a write-kernel shape (a compile proxy — the
-        write-path twin of the trace plane's jit_shape_first_seen)."""
+        """First sighting of a write-kernel shape (the JAX package's compile
+        proxy)."""
         with self._lock:
             if key in self._shapes or len(self._shapes) >= _SHAPES_MAX:
                 return

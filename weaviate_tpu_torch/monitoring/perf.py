@@ -56,7 +56,7 @@ from weaviate_tpu_torch.monitoring import costmodel
 
 # ledger stages in display order (the /debug/perf breakdown; scatter is
 # fed by the coalescer, queue_wait per admitted request)
-PHASES = ("queue_wait", "filter", "enqueue", "device", "gather_hop",
+PHASES = ("queue_wait", "filter", "enqueue", "fetch", "gather_hop",
           "hydrate", "scatter")
 
 # per-phase sample cap (deque maxlen): queue_wait gets one sample per
@@ -141,16 +141,18 @@ class PerfWindow:
 
     def __init__(self, window_s: float = 60.0, metrics=None,
                  backend: Optional[str] = None,
-                 sample_hint: float = 1.0):
+                 sample_hint: float = 1.0, device=None):
         self.window_s = max(float(window_s), 1e-3)
         self.metrics = metrics
-        self.backend = backend or costmodel.detect_backend()
+        # the PEAKS key of `device` (None: the port's default device)
+        self.backend = backend or costmodel.detect_backend(device)
         # trace sample rate, surfaced in the summary: dispatch coverage
         # here is FULL (shard feeds every dispatch while the tracer is
         # up), but readers correlating with /debug/traces need the rate
         self.sample_hint = float(sample_hint)
         self._lock = threading.Lock()
-        # (t_end_mono, flops, bytes, device_s, wall_s, tier, regime, rows)
+        # (t_end_mono, flops, bytes, fetch_s, tier, regime, rows, fused,
+        # fused-invariant violation)
         self._entries: deque = deque()
         # phase name -> deque[(t_mono, ms)], count-capped (see
         # _PHASE_SAMPLES_MAX) on top of the time-horizon eviction
@@ -160,7 +162,7 @@ class PerfWindow:
         # running sums over the live window (evicted incrementally)
         self._flops = 0
         self._bytes = 0
-        self._device_s = 0.0
+        self._fetch_s = 0.0
         self._rows = 0
         self._started = time.monotonic()
         self._first_entry: Optional[float] = None
@@ -174,7 +176,7 @@ class PerfWindow:
         for every dispatch while the perf plane is up."""
         now = time.monotonic()
         ledger = shape.ledger()
-        device_s = max(shape.device_ms, 0.0) / 1000.0
+        fetch_s = max(shape.fetch_ms, 0.0) / 1000.0
         flops = shape.flops()
         byts = shape.bytes()
         # mesh dispatches (shape.ndev > 1) count GLOBAL work in n — the
@@ -187,7 +189,7 @@ class PerfWindow:
             flops //= nd
             byts //= nd
         regime = (costmodel.regime(flops, byts, self.backend)
-                  if device_s > 0.0 else None)
+                  if fetch_s > 0.0 else None)
         # the shape's wall endpoints are perf_counter stamps; the window
         # runs on time.monotonic. Only DURATIONS are trusted
         # (clock-agnostic deltas); the in-flight interval — enqueue start
@@ -195,7 +197,10 @@ class PerfWindow:
         # monotonic fetch stamp `_fetch_packed` took (NOT at this record
         # call: hydration runs in between, and re-anchoring here would
         # shift concurrent dispatches' intervals by their differing
-        # hydrate times and corrupt the overlap merge)
+        # hydrate times and corrupt the overlap merge). The dispatch's
+        # CUDA-event `device_ms` is not used: on the stream every serving
+        # thread shares it spans other dispatches' kernels too, and no
+        # events run while a device trace captures
         wall_s = max(shape.t_end - shape.t_start, 0.0)
         # no fetch stamp = no device call ran (an empty gather-tier early
         # return): it must contribute NO duty interval — counting its
@@ -214,11 +219,11 @@ class PerfWindow:
         with self._lock:
             self._evict(now)
             self._entries.append(
-                (now, flops, byts, device_s, shape.tier, regime,
+                (now, flops, byts, fetch_s, shape.tier, regime,
                  int(rows) or shape.batch, fused, viol))
             self._flops += flops
             self._bytes += byts
-            self._device_s += device_s
+            self._fetch_s += fetch_s
             self._rows += int(rows) or shape.batch
             self._total_dispatches += 1
             if self._first_entry is None:
@@ -264,10 +269,10 @@ class PerfWindow:
     def _evict(self, now: float) -> None:
         horizon = now - self.window_s
         while self._entries and self._entries[0][0] < horizon:
-            _, f, b, ds, _, _, r, _, _ = self._entries.popleft()
+            _, f, b, fs, _, _, r, _, _ = self._entries.popleft()
             self._flops -= f
             self._bytes -= b
-            self._device_s -= ds
+            self._fetch_s -= fs
             self._rows -= r
         for d in self._phase.values():
             while d and d[0][0] < horizon:
@@ -328,7 +333,7 @@ class PerfWindow:
                 d.clear()
             self._duty = DutyCycle(self.window_s)
             self._flops = self._bytes = 0
-            self._device_s = 0.0
+            self._fetch_s = 0.0
             self._rows = 0
             self._first_entry = None
             self._started = time.monotonic()
@@ -344,7 +349,7 @@ class PerfWindow:
             duty = self._duty_locked(now)
             n = len(self._entries)
             flops, byts = self._flops, self._bytes
-            device_s, rows = self._device_s, self._rows
+            fetch_s, rows = self._fetch_s, self._rows
             phase_ms = {p: [ms for _, ms in d]
                         for p, d in self._phase.items() if d}
             tiers: dict[str, int] = {}
@@ -372,10 +377,10 @@ class PerfWindow:
             # union of in-flight (enqueue->fetch) intervals — the
             # device-busy roofline's denominator
             "device_busy_s": round(busy_s, 4),
-            # sum of blocked-fetch times: a LOWER bound on device time
-            # (a result landing during host overlap fetches in ~0 ms), so
-            # it is reported but never used as a roofline denominator
-            "device_fetch_s": round(device_s, 4),
+            # sum of blocked-fetch times: the host's wait, not the
+            # device's work (a result landing during host overlap fetches
+            # in ~0 ms); reported, never a roofline denominator
+            "device_fetch_s": round(fetch_s, 4),
         }
         # wall roofline: achieved over the observed window span — the
         # serving-level MFU (what r05's 1.78% measured). device-busy

@@ -23,12 +23,26 @@ Endpoints (all GET, mounted on the main REST port like the reference):
 The port's device trace is a `torch.profiler` session in place of the
 JAX profiler: CPU and CUDA activities when the App runs on the card, CPU
 only for an App on the CPU, written as one Chrome/Perfetto trace. CUDA
-activity is recorded for the whole process, whichever thread launched it.
+activity is recorded for the whole process, whichever thread launched it;
+the profiler records CPU ops only of the thread that captures. So the
+capture also writes the program's own spans (monitoring/tracing.py) of the
+traces that ran in its window into the same trace.json, each on its
+serving thread's track, on the profiler's clock: the offset between the
+spans' perf_counter_ns and the profiler's timestamps is measured, not
+assumed, from `weaviate.clock_sync` ranges the capture thread opens just
+after the start and just before the stop. Leaf spans go out as
+`user_annotation`, enclosing ones (a request's root, `dispatch`,
+`device_search`, `shard.put_batch`) as `program`, and every exported event
+is clipped to the profiler's first and last event, so the window the
+trace spans is the profiler's own.
 """
 
 from __future__ import annotations
 
+import bisect
+import json
 import os
+import subprocess
 import sys
 import threading
 import time
@@ -160,6 +174,48 @@ def _run_teardown_hooks() -> None:
             pass
 
 
+# A profiler session's whole life, from the warm session through the
+# capture's stop, against the CUDA timing events of traced dispatches: a
+# `cudaEventRecord` while the profiler starts or stops aborted the process
+# on the card. `sessions` counts the lives under way, `users` the event
+# calls under way; a life begins only once those have drained.
+_gate = threading.Condition()
+_gate_state = {"sessions": 0, "users": 0}
+# how long a session waits for the event calls under way (each takes
+# microseconds)
+_GATE_WAIT_S = 5.0
+
+
+def hold_off() -> bool:
+    """Keep a profiler session from starting until `let_go()`. -> False,
+    and nothing held, when one is up already: the caller then skips its
+    CUDA timing events."""
+    with _gate:
+        if _gate_state["sessions"]:
+            return False
+        _gate_state["users"] += 1
+        return True
+
+
+def let_go() -> None:
+    """End a `hold_off()` that returned True."""
+    with _gate:
+        _gate_state["users"] -= 1
+        if not _gate_state["users"]:
+            _gate.notify_all()
+
+
+def _begin_session() -> None:
+    with _gate:
+        _gate_state["sessions"] += 1
+        _gate.wait_for(lambda: not _gate_state["users"], timeout=_GATE_WAIT_S)
+
+
+def _end_session() -> None:
+    with _gate:
+        _gate_state["sessions"] -= 1
+
+
 def stop_active_trace() -> bool:
     """Stop the active device-trace capture if one is running. Idempotent
     and exception-proof — safe from atexit, a signal handler, or the
@@ -251,19 +307,177 @@ def _activities(device):
     return acts
 
 
+# devices a profiler session has run on in this process (see warm)
+_warmed: set = set()
+
+CLOCK_MARK = "weaviate.clock_sync"
+# ranges a sync point opens. A range's start less the perf_counter_ns read
+# just before it is an upper bound of the clocks' offset, loose only when
+# the thread was held up between the two, so a sync point reads the
+# smallest of its ranges'. (A read inside the range is no use: entering it
+# can give up the GIL, and under load every range then waits for it.)
+_MARKS = 16
+
+
+def warm(device) -> None:
+    """Run one short profiler session with a device op in it, once per
+    process and device, before a capture's own. The profiler's first
+    session initialises Kineto, which on the card takes ~10 s when begun
+    off the thread that imported torch (a REST handler's): spent here, a
+    process's first capture then records the window it was asked for, not
+    whatever is left of it."""
+    import torch
+
+    key = str(device)
+    if key in _warmed:
+        return
+    with torch.profiler.profile(activities=_activities(device)):
+        if device is not None and torch.device(device).type == "cuda":
+            torch.zeros(1, device=device).add_(1)
+            torch.cuda.synchronize(device)
+    _warmed.add(key)
+
+
+def _clock_marks() -> list[int]:
+    """Open `_MARKS` profiler ranges named CLOCK_MARK on this thread; ->
+    the perf_counter_ns (the spans' clock) read just before each."""
+    import torch
+
+    out = []
+    for _ in range(_MARKS):
+        out.append(time.perf_counter_ns())
+        with torch.profiler.record_function(CLOCK_MARK):
+            pass
+    return out
+
+
+def _tracks(spans: list, events: list) -> dict:
+    """{a span's thread (native id): the track the profiler gave it}. The
+    profiler names a thread by its native id, by the low 32 bits of its
+    pthread id, or by an id it kept from an earlier thread of the same
+    pthread id; so each thread takes the track whose host events (CUDA
+    runtime calls, CPU ops) fall most often inside its leaf spans, one
+    thread a track."""
+    host = sorted((float(e["ts"]), e.get("tid")) for e in events
+                  if e.get("cat") in ("cuda_runtime", "cpu_op") and "ts" in e)
+    at = [t for t, _ in host]
+    votes: dict = {}
+    for e in spans:
+        if e["cat"] != "user_annotation":
+            continue
+        v = votes.setdefault(e["tid"], {})
+        for _, tid in host[bisect.bisect_left(at, e["ts"]):
+                           bisect.bisect_right(at, e["ts"] + e["dur"])]:
+            v[tid] = v.get(tid, 0) + 1
+    out: dict = {}
+    for n, native, tid in sorted(((n, native, tid) for native, v in votes.items()
+                                  for tid, n in v.items()), reverse=True):
+        if native not in out and tid not in out.values():
+            out[native] = tid
+    return out
+
+
+def _span_events(d: dict, t0_ns: int, offset_us: float, pid, lo: float,
+                 hi: float, args: dict, out: list) -> None:
+    """The span tree `d` (a /debug/traces root or child; its `start_ms`
+    relative to `t0_ns`) as Chrome events on the profiler's clock, clipped
+    to [lo, hi]."""
+    dur = d.get("duration_ms")
+    if dur is not None:
+        start = t0_ns / 1e3 + d.get("start_ms", 0.0) * 1e3 + offset_us
+        s, e = max(start, lo), min(start + dur * 1e3, hi)
+        if e > s:
+            ev_args = dict(args)
+            if d.get("cpu_ms") is not None:
+                ev_args["cpu_ms"] = d["cpu_ms"]
+            ev_args.update(d.get("attrs") or {})
+            out.append({"ph": "X", "name": d["name"], "pid": pid,
+                        "tid": d.get("tid"), "ts": s, "dur": e - s,
+                        "cat": "program" if d.get("children") else "user_annotation",
+                        "args": ev_args})
+    for c in d.get("children", ()):
+        _span_events(c, t0_ns, offset_us, pid, lo, hi, args, out)
+
+
+def export_spans(path: str, marks: list[int], traces: list) -> dict:
+    """Measure the clock offset from the trace's CLOCK_MARK ranges and the
+    `marks` read just before them (half after the start, half before the
+    stop), then write the spans of `traces` (`Tracer.timed()` entries)
+    that overlap the profiler's window into the trace at `path`, each on
+    its thread's track. -> the clock reading ({offset_us, drift_us}: the
+    mean and the difference of the two sync points' offsets), also stored
+    in the trace as `weaviateClockSync`; {} when the trace does not hold
+    the marks."""
+    with open(path) as f:
+        doc = json.load(f)
+    events = doc.get("traceEvents", [])
+    sync = sorted((e for e in events if e.get("name") == CLOCK_MARK
+                   and e.get("ph") == "X"), key=lambda e: float(e["ts"]))
+    if len(sync) != len(marks) or not marks:
+        return {}
+    offs = [float(e["ts"]) - m / 1e3 for e, m in zip(sync, marks)]
+    half = len(offs) // 2
+    first, last = min(offs[:half]), min(offs[half:])
+    clock = {"offset_us": (first + last) / 2, "drift_us": last - first}
+    timed = [e for e in events if e.get("ph") == "X" and "ts" in e and "dur" in e]
+    lo = min(float(e["ts"]) for e in timed)
+    hi = max(float(e["ts"]) + float(e["dur"]) for e in timed)
+    pid = sync[0].get("pid")
+    spans: list = []
+    for t0_ns, tr in traces:
+        root = dict(tr["root"], name=f"{tr['kind']} {tr['name']}")
+        _span_events(root, t0_ns, clock["offset_us"], pid, lo, hi,
+                     {"trace_id": tr["trace_id"]}, spans)
+    tracks = _tracks(spans, events)
+    for e in spans:
+        e["tid"] = tracks.get(e["tid"], e["tid"])
+    # the spans first: a reader that names a stretch by the event covering
+    # most of it, first one winning a tie, then names it by a leaf span
+    # rather than by the CUDA call inside that span
+    doc["traceEvents"] = spans + events
+    doc["weaviateClockSync"] = dict(clock, spans=len(spans))
+    with open(path, "w") as f:
+        f.write(json.dumps(doc))  # the C encoder: json.dump's is ~6x slower
+    return clock
+
+
+def _merge_spans(path: str, marks: list[int], traces: list) -> bool:
+    """`export_spans` in a child process of its own: parsing and writing a
+    trace of tens of MB holds the GIL for seconds, which would stall the
+    serving threads. This file runs as the child's script (its imports are
+    the standard library's). -> whether the merge succeeded."""
+    side = path + ".spans.json"
+    with open(side, "w") as f:
+        f.write(json.dumps({"marks": marks, "traces": traces}))
+    try:
+        done = subprocess.run([sys.executable, "-I", os.path.abspath(__file__), path, side],
+                              stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+                              timeout=600)
+    except subprocess.TimeoutExpired:
+        return False
+    finally:
+        os.remove(side)
+    return done.returncode == 0
+
+
 def device_trace(data_path: str, seconds: float = 3.0, device=None) -> str:
     """Capture a device trace for ?seconds — the port's twin of pprof's
     execution trace (the reference's /debug/pprof/trace). A torch.profiler
     session records the kernels and copies the card runs during the window
-    (CUDA activities when `device` is a CUDA device) and the CPU ops; it
-    writes one Chrome/Perfetto trace, trace.json, under
-    <data>/traces/<stamp>/ and returns its path + file listing (view with
-    ui.perfetto.dev or chrome://tracing). One capture at a time —
-    concurrent requests get an explicit error, not a corrupt trace."""
+    (CUDA activities when `device` is a CUDA device) and the CPU ops of
+    this thread; it writes one Chrome/Perfetto trace, trace.json, under
+    <data>/traces/<stamp>/ with the program's spans laid in
+    (`export_spans`), and returns its path + file listing (view with
+    ui.perfetto.dev or chrome://tracing). From before the warm session to
+    after the stop no traced dispatch records a CUDA timing event
+    (`hold_off`). One capture at a time — concurrent requests get an
+    explicit error, not a corrupt trace."""
     import glob
     import tempfile
 
     import torch
+
+    from weaviate_tpu_torch.monitoring import tracing
 
     if not _trace_lock.acquire(blocking=False):
         raise TraceBusyError("a device trace is already being captured")
@@ -274,28 +488,47 @@ def device_trace(data_path: str, seconds: float = 3.0, device=None) -> str:
         # not merge into one trace directory
         out_dir = tempfile.mkdtemp(
             prefix=time.strftime("%Y%m%d-%H%M%S-"), dir=root)
-        # arm the emergency teardown BEFORE starting: a SIGTERM landing
-        # between start and the finally must still stop the capture
-        # (atexit for normal exits; the chaining SIGTERM handler when one
-        # could be installed — see install_trace_teardown)
-        install_trace_teardown()
-        prof = torch.profiler.profile(activities=_activities(device))
-        with _teardown_lock:
-            _teardown_state["active"] = True
-            _teardown_state["profiler"] = prof
-        prof.start()
+        _begin_session()
         try:
-            time.sleep(max(0.0, min(float(seconds), 60.0)))
+            warm(device)
+            # arm the emergency teardown BEFORE starting: a SIGTERM landing
+            # between start and the finally must still stop the capture
+            # (atexit for normal exits; the chaining SIGTERM handler when one
+            # could be installed — see install_trace_teardown)
+            install_trace_teardown()
+            prof = torch.profiler.profile(activities=_activities(device))
+            with _teardown_lock:
+                _teardown_state["active"] = True
+                _teardown_state["profiler"] = prof
+            t_on = time.perf_counter_ns()
+            prof.start()
+            marks: list[int] = []
+            try:
+                marks += _clock_marks()
+                time.sleep(max(0.0, min(float(seconds), 60.0)))
+                marks += _clock_marks()
+            finally:
+                stopped = stop_active_trace()
         finally:
-            stopped = stop_active_trace()
+            _end_session()
+        t_off = time.perf_counter_ns()
+        merged = ""
         if stopped:
-            prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+            path = os.path.join(out_dir, "trace.json")
+            prof.export_chrome_trace(path)
+            tracer = tracing.get_tracer()
+            if tracer is not None:
+                # the traces that overlap the capture
+                traces = [(t0, tr) for t0, tr in tracer.timed()
+                          if t0 <= t_off and t0 + (tr["duration_ms"] or 0.0) * 1e6 >= t_on]
+                if not _merge_spans(path, marks, traces):
+                    merged = "the program's spans could not be merged into it\n"
         files = sorted(
             os.path.relpath(p, out_dir)
             for p in glob.glob(os.path.join(out_dir, "**"), recursive=True)
             if os.path.isfile(p))
         return (f"device trace written to {out_dir}\n"
-                + "".join(f"  {f}\n" for f in files)
+                + "".join(f"  {f}\n" for f in files) + merged
                 + "view: ui.perfetto.dev or chrome://tracing\n")
     finally:
         _trace_lock.release()
@@ -310,3 +543,10 @@ def index() -> str:
         "  heap?limit=30             tracemalloc top allocation sites\n"
         "  cmdline                   process argv\n"
     )
+
+
+if __name__ == "__main__":
+    # python -I profiling.py TRACE SIDE: merge SIDE's marks and traces into TRACE
+    with open(sys.argv[2]) as f:
+        side = json.load(f)
+    export_spans(sys.argv[1], side["marks"], side["traces"])

@@ -1,14 +1,10 @@
 # The port's copy of weaviate_tpu/monitoring/tracing.py, its imports pointed at the port.
 """Request tracing with device-time attribution across the coalesced path.
 
-The existing observability surface — the per-phase histograms of
-shard_read.go parity (filter / device_search / hydrate) and the pprof
-mount — aggregates across requests. The cross-request query coalescer
-(serving/coalescer.py) broke the implicit 1:1 mapping between a request and
-its device work: ~21 requests share one padded dispatch, so no histogram
-can answer "where did THIS slow query spend its time" or "how much
-padding / queue wait did tenant X pay". This module restores per-request
-answers with a low-overhead span tracer:
+The per-phase histograms (shard_read.go parity) and the pprof mount
+aggregate across requests, and the query coalescer (serving/coalescer.py)
+shares one padded dispatch among many requests; this module answers
+"where did THIS request spend its time" with a low-overhead span tracer:
 
   - handlers (REST / GraphQL / gRPC) accept and emit W3C ``traceparent``
     (``X-Request-Id`` fallback) and open a sampled request trace;
@@ -17,17 +13,23 @@ answers with a low-overhead span tracer:
     coalescer's flush-thread / dispatch-pool handoffs as explicit captures
     (a ``_Waiter`` carries its submitter's span; the dispatch record rides
     a second ContextVar set around the shard call);
-  - each shard dispatch (db/shard.py, index/gpu.py) records device-phase
-    timings (filter, device_search, rescore, hydrate — rescore is fused
-    into device_search on this implementation: upload+scan+rescore+topk
-    are one XLA program) plus dispatch facts: padded-vs-actual rows, the
-    first-sighting-of-this-jit-shape bit, lane queue wait, occupancy.
+  - each shard dispatch (db/shard.py, index/gpu.py) records its phases
+    (filter, device_search, hydrate), device_search's own steps (the
+    snapshot read, the query staging, the launches, the one fetch) and
+    dispatch facts: padded-vs-actual rows, lane queue wait, the staging
+    buffers it had to allocate, and on the card its device time from two
+    CUDA events.
+
+Every span carries its start on ``time.perf_counter_ns()`` and the CPU
+time of the thread that ran it (``thread_time_ns``), so a device trace
+(monitoring/profiling.py) can lay the spans beside the card's kernels on
+one clock and tell a thread that worked from one that waited.
 
 Fan-in/fan-out attribution — the key design problem — happens in
 ``DispatchRecord.finish()``: ONE coalesced dispatch splits its device time
 back across every rider request's trace proportionally by rows
 (``share = rows_i / actual_rows``), so the riders' attributed device times
-sum exactly to the dispatch's device span (padding overhead is reported
+sum exactly to the dispatch's phases (padding overhead is reported
 separately as ``padding_waste``, never smeared into shares). Attribution
 creates already-closed spans atomically, and every open span closes in a
 ``finally`` (handler roots) — bypass, error, and shutdown paths annotate
@@ -39,15 +41,15 @@ Exposure (all bounded):
   - a structured slow-query log: one JSON line (full span tree) on the
     ``weaviate_tpu_torch.slowquery`` logger when a trace exceeds
     ``SLOW_QUERY_THRESHOLD_MS``;
-  - exemplar counters in the existing ``Metrics`` registry
-    (``weaviate_traces_total``, ``weaviate_trace_phase_ms``,
-    ``weaviate_trace_dispatch_rows_total``), observation exception-guarded
-    like every other serving-path metric.
+  - the spans of the traces that ran during a device-trace capture, in
+    its trace.json on the profiler's clock (monitoring/profiling.py);
+  - exemplar counters (``weaviate_traces_total``, ``weaviate_trace_phase_ms``,
+    ``weaviate_trace_dispatch_rows_total``), exception-guarded.
 
 Disabled (``TRACING_ENABLED`` unset) the module global ``_tracer`` is
 ``None`` and every entry point returns after that one comparison: no span
 objects, no ContextVar writes, no locks — the serving hot path makes zero
-tracing calls (pinned by a spy test in tests/test_tracing.py). Enabled,
+tracing calls (pinned by spy tests in tests/test_torch_tracing.py). Enabled,
 the cost is O(spans) per sampled request with no locks on the dispatch
 hot path (phase recording appends to a plain list owned by one thread;
 the only locks are per-trace child-append and the ring append at finish).
@@ -67,8 +69,6 @@ import time
 import uuid
 from collections import deque
 from typing import Any, Iterator, Optional
-
-from weaviate_tpu_torch.monitoring import costmodel
 
 _SLOW_LOG = logging.getLogger("weaviate_tpu_torch.slowquery")
 
@@ -111,26 +111,54 @@ def clean_request_id(value: Optional[str]) -> str:
     return rid or gen_request_id()
 
 
+_local = threading.local()
+
+
+def _tid() -> int:
+    """The calling thread's native id (cached: a system call each time)."""
+    t = getattr(_local, "tid", None)
+    if t is None:
+        t = _local.tid = threading.get_native_id()
+    return t
+
+
 class Span:
     """One timed node in a request's trace tree. Children may be appended
     from other threads (coalesced-dispatch attribution), so the append goes
-    through the owning trace's lock; everything else is single-writer."""
+    through the owning trace's lock; everything else is single-writer.
+    ``start_ns`` is on ``time.perf_counter_ns()``; ``cpu_ms`` is the CPU
+    time of the thread ``tid`` (its native id, as the profiler names
+    threads) over the span."""
 
-    __slots__ = ("name", "trace", "attrs", "children", "duration_ms", "_t0")
+    __slots__ = ("name", "trace", "attrs", "children", "duration_ms",
+                 "start_ns", "cpu_ms", "tid", "_c0")
 
     def __init__(self, name: str, trace: "Trace",
                  attrs: Optional[dict] = None,
-                 duration_ms: Optional[float] = None):
+                 duration_ms: Optional[float] = None,
+                 start_ns: Optional[int] = None,
+                 cpu_ms: Optional[float] = None,
+                 tid: Optional[int] = None):
         self.name = name
         self.trace = trace
         self.attrs: dict[str, Any] = dict(attrs) if attrs else {}
         self.children: list[Span] = []
         self.duration_ms = duration_ms
-        self._t0 = time.perf_counter() if duration_ms is None else None
+        self.cpu_ms = cpu_ms
+        self.tid = _tid() if tid is None else tid
+        self._c0 = None
+        if duration_ms is None:
+            self.start_ns = time.perf_counter_ns()
+            self._c0 = time.thread_time_ns()
+        else:
+            self.start_ns = (time.perf_counter_ns() - int(duration_ms * 1e6)
+                             if start_ns is None else int(start_ns))
 
     def end(self) -> None:
-        if self.duration_ms is None and self._t0 is not None:
-            self.duration_ms = (time.perf_counter() - self._t0) * 1000.0
+        """Close an open span; on the thread that opened it."""
+        if self.duration_ms is None:
+            self.duration_ms = (time.perf_counter_ns() - self.start_ns) / 1e6
+            self.cpu_ms = (time.thread_time_ns() - self._c0) / 1e6
 
     def child_start(self, name: str, attrs: Optional[dict] = None) -> "Span":
         """Open a child span (the caller owns closing it — prefer the
@@ -141,11 +169,15 @@ class Span:
         return c
 
     def child_done(self, name: str, duration_ms: float,
-                   attrs: Optional[dict] = None) -> "Span":
+                   attrs: Optional[dict] = None, start_ns: Optional[int] = None,
+                   cpu_ms: Optional[float] = None,
+                   tid: Optional[int] = None) -> "Span":
         """Attach an already-closed child (post-hoc attribution): created
         and finished atomically, so attribution can never leak an open
-        span on an error path."""
-        c = Span(name, self.trace, attrs, duration_ms=float(duration_ms))
+        span on an error path. `start_ns` is the real start of the work it
+        stands for (default: `duration_ms` before now)."""
+        c = Span(name, self.trace, attrs, duration_ms=float(duration_ms),
+                 start_ns=start_ns, cpu_ms=cpu_ms, tid=tid)
         with self.trace.lock:
             self.children.append(c)
         return c
@@ -154,14 +186,19 @@ class Span:
         with self.trace.lock:
             self.attrs[key] = value
 
-    def to_dict(self) -> dict:
-        d: dict[str, Any] = {"name": self.name}
+    def to_dict(self, t0_ns: int) -> dict:
+        """-> the span tree; `start_ms` relative to `t0_ns`, the trace's."""
+        d: dict[str, Any] = {"name": self.name,
+                             "start_ms": round((self.start_ns - t0_ns) / 1e6, 4)}
         if self.duration_ms is not None:
             d["duration_ms"] = round(self.duration_ms, 3)
+        if self.cpu_ms is not None:
+            d["cpu_ms"] = round(self.cpu_ms, 3)
+        d["tid"] = self.tid
         if self.attrs:
             d["attrs"] = dict(self.attrs)
         if self.children:
-            d["children"] = [c.to_dict() for c in self.children]
+            d["children"] = [c.to_dict(t0_ns) for c in self.children]
         return d
 
 
@@ -190,6 +227,8 @@ class Trace:
         return f"00-{self.trace_id}-{self.span_id}-01"
 
     def to_dict(self) -> dict:
+        """The trace's one absolute stamp is `start_unix_ms`; its spans'
+        starts are relative to the root's."""
         return {
             "trace_id": self.trace_id,
             "span_id": self.span_id,
@@ -200,7 +239,7 @@ class Trace:
             "start_unix_ms": round(self.start_unix_ms, 1),
             "duration_ms": (round(self.root.duration_ms, 3)
                             if self.root.duration_ms is not None else None),
-            "root": self.root.to_dict(),
+            "root": self.root.to_dict(self.root.start_ns),
         }
 
 
@@ -217,12 +256,11 @@ class DispatchRecord:
     reads its own trace.
 
     Attribution math: ``share_i = rows_i / actual_rows``; every phase (and
-    the dispatch total) is split by share, so when all riders are sampled
-    ``sum_i(device_ms_i) == dispatch device_ms`` exactly (float error
-    aside) — the identity tests/test_tracing.py pins. Padding overhead is
-    NOT smeared into shares: it is reported as ``padding_waste =
-    1 - actual_rows/padded_rows`` so "how much padding did this request
-    pay" stays answerable separately.
+    its steps) is split by share, so when all riders are sampled the
+    riders' phase durations sum to the dispatch's exactly (float error
+    aside). Starts and CPU times are the dispatching thread's, unsplit.
+    Padding overhead is NOT smeared into shares: it is reported as
+    ``padding_waste = 1 - actual_rows/padded_rows``.
     """
 
     __slots__ = ("riders", "owned", "attrs", "phases", "ledger_entries",
@@ -234,45 +272,40 @@ class DispatchRecord:
         self.owned = owned
         self.attrs: dict[str, Any] = {"dispatch_id": next(_dispatch_seq)}
         self.attrs.update(attrs)
-        self.phases: list[tuple[str, float]] = []
-        # host-overhead ledger (monitoring/perf.py stages): finer than the
-        # attribution phases — enqueue / device fetch / gather hop — and
-        # kept SEPARATE from `phases` so the attribution identity (rider
-        # phase shares sum to the dispatch span) is untouched by ledger
-        # stages that overlap the device_search interval
+        # (name, start_ns, end_ns, cpu_ns, tid, steps)
+        self.phases: list[tuple] = []
+        # host-overhead ledger (monitoring/perf.py stages), kept apart
+        # from `phases`: its stages overlap the device_search interval
         self.ledger_entries: list[tuple[str, float]] = []
         self._finished = False
 
-    def phase(self, name: str, ms: float) -> None:
-        """Record one device-phase duration (filter, device_search, rescore,
-        hydrate). Single-threaded by construction (the dispatching thread),
-        so no lock on the hot path."""
-        self.phases.append((name, float(ms)))
+    def phase(self, name: str, start_ns: int, end_ns: int,
+              cpu_ns: Optional[int] = None, steps=()) -> None:
+        """Record one phase (filter, device_search, hydrate) by its
+        perf_counter_ns interval and its thread CPU time. `steps` are
+        ``(name, start_ns, end_ns, cpu_ns, steps)`` of the work inside it
+        (index/gpu.py's). Single-threaded by construction (the dispatching
+        thread), so no lock on the hot path."""
+        self.phases.append((name, int(start_ns), int(end_ns), cpu_ns,
+                            _tid(), steps))
 
     def fact(self, **kw) -> None:
         self.attrs.update(kw)
 
     def attach_shape(self, shape) -> None:
-        """Fold a costmodel.DispatchShape's analytic facts + host-overhead
-        ledger into this record (db/shard.py calls it right after the
-        dispatch's phases land, before finish()). The roofline facts
-        themselves are computed at finish()."""
+        """Fold a costmodel.DispatchShape's facts and host-overhead ledger
+        into this record (db/shard.py calls it right after the dispatch's
+        phases land, before finish()): the tier and the work as plain
+        facts, the staging buffers allocated, and on the card the device
+        time the dispatch's CUDA events measured."""
         self.attrs.update(tier=shape.tier, n_live=shape.n,
                           dim=shape.dim, flops=shape.flops(),
-                          bytes=shape.bytes())
+                          bytes=shape.bytes(), stage_alloc=shape.stage_alloc)
         if shape.backend is not None:
             # the PEAKS key of the device the dispatch ran on
             self.attrs["backend"] = shape.backend
-        if shape.t_end > shape.t_start:
-            # the dispatch's enqueue->fetch wall: the per-dispatch roofline
-            # denominator. The blocked-fetch time is only a LOWER bound on
-            # device time (a result that landed while the host was doing
-            # enqueue/compile work fetches in ~0 ms), so dividing by it
-            # can fabricate >100% MFU; the wall form is an honest
-            # serving-level number (kernel-level lives in /debug/perf's
-            # device-busy aggregate)
-            self.attrs["dispatch_wall_ms"] = round(
-                (shape.t_end - shape.t_start) * 1000.0, 3)
+        if shape.device_ms >= 0.0:
+            self.attrs["device_ms"] = round(shape.device_ms, 4)
         for name, ms in shape.ledger().items():
             self.ledger_entries.append((name, ms))
 
@@ -282,73 +315,36 @@ class DispatchRecord:
         if self._finished:
             return
         self._finished = True
-        total_ms = sum(ms for _, ms in self.phases)
-        device_ms = sum(ms for n, ms in self.phases if n == "device_search")
+        total_ms = sum((e - s) / 1e6 for _, s, e, *_ in self.phases)
         rows_total = int(self.attrs.get("actual_rows") or 0) \
             or sum(r for _, r, _ in self.riders) or 1
         padded = int(self.attrs.get("padded_rows") or 0)
         if padded > 0:
             self.attrs["padding_waste"] = round(
                 max(0.0, 1.0 - rows_total / padded), 4)
-        # roofline facts (costmodel): the dispatch's analytic work over its
-        # enqueue->fetch WALL — the serving-level per-dispatch utilization.
-        # Deliberately NOT over the blocked-fetch time: that is a lower
-        # bound on device time (a dispatch overlapping host work fetches
-        # in ~0 ms and would read as >100% MFU); kernel-level utilization
-        # comes from /debug/perf's device-busy aggregate instead.
-        flops = self.attrs.get("flops")
-        ledger = dict(self.ledger_entries)
-        if flops:
-            dev_ms = self.attrs.get("dispatch_wall_ms") or device_ms
-            # no roofline for a card with no datasheet peaks (roofline None)
-            rf = (costmodel.roofline(flops, self.attrs.get("bytes", 0), dev_ms / 1000.0,
-                                     self.attrs.get("backend"))
-                  if dev_ms > 0.0 else None)
-            if rf is not None:
-                self.attrs.update(
-                    mfu_pct=rf["mfu_pct"], hbm_bw_pct=rf["bw_pct"],
-                    arith_intensity=rf["arith_intensity_flops_per_byte"],
-                    regime=rf["regime"])
-        if ledger:
+        if self.ledger_entries:
             self.attrs["ledger_ms"] = {
-                k: round(v, 3) for k, v in ledger.items()}
-        # per-rider flops/bytes: telescoping integer split, so when every
-        # rider is sampled the parts sum BIT-EXACTLY to the dispatch
-        # totals (the flops/bytes twin of the device-time identity)
-        rider_rows = [r for _, r, _ in self.riders]
-        rider_flops = (costmodel.split_exact(flops, rider_rows, rows_total)
-                       if flops else None)
-        rider_bytes = (costmodel.split_exact(
-            self.attrs.get("bytes", 0), rider_rows, rows_total)
-            if flops else None)
+                k: round(v, 3) for k, v in self.ledger_entries}
+        start = min((s for _, s, *_ in self.phases), default=None)
+        cpu = sum(c or 0 for *_, c, _, _ in self.phases) / 1e6
+        tid = self.phases[0][4] if self.phases else None
         t = _tracer
         m = t.metrics if t is not None else None
-        for i, (span, rows, wait_ms) in enumerate(self.riders):
+        for span, rows, wait_ms in self.riders:
             share = rows / rows_total
-            attrs = {
-                **self.attrs,
-                "rows": rows,
-                "share": round(share, 6),
-                "queue_wait_ms": round(wait_ms, 3),
-                "device_ms": device_ms * share,
-                "dispatch_device_ms": device_ms,
-                "dispatch_total_ms": total_ms,
-            }
-            if rider_flops is not None:
-                attrs["flops"] = rider_flops[i]
-                attrs["bytes"] = rider_bytes[i]
-                attrs["dispatch_flops"] = flops
-                attrs["dispatch_bytes"] = self.attrs.get("bytes", 0)
-            d = span.child_done("dispatch", duration_ms=total_ms * share,
-                                attrs=attrs)
-            for nm, ms in self.phases:
-                d.child_done(nm, duration_ms=ms * share)
+            attrs = {**self.attrs, "rows": rows, "share": round(share, 6),
+                     "queue_wait_ms": round(wait_ms, 3),
+                     "dispatch_total_ms": total_ms}
+            d = span.child_done("dispatch", total_ms * share, attrs,
+                                start_ns=start, cpu_ms=cpu, tid=tid)
+            for nm, s, e, c, tid_p, steps in self.phases:
+                _closed(d, nm, s, e, c, tid_p, steps, share)
             if m is not None:
                 try:
                     if wait_ms > 0.0:
                         m.trace_phase.labels("queue_wait").observe(wait_ms)
-                    for nm, ms in self.phases:
-                        m.trace_phase.labels(nm).observe(ms * share)
+                    for nm, s, e, *_ in self.phases:
+                        m.trace_phase.labels(nm).observe((e - s) / 1e6 * share)
                 except Exception:  # noqa: BLE001 — metrics must not break serving
                     pass
         if m is not None:
@@ -360,10 +356,20 @@ class DispatchRecord:
                 pass
 
 
+def _closed(parent: Span, name: str, start_ns: int, end_ns: int,
+            cpu_ns: Optional[int], tid: int, steps, share: float) -> None:
+    """A closed child of `parent` for one recorded interval, its steps
+    nested under it; durations split by `share`."""
+    s = parent.child_done(name, (end_ns - start_ns) / 1e6 * share,
+                          start_ns=start_ns, tid=tid,
+                          cpu_ms=None if cpu_ns is None else cpu_ns / 1e6)
+    for nm, s0, e0, c0, sub in steps:
+        _closed(s, nm, s0, e0, c0, tid, sub, share)
+
+
 class Tracer:
     """Process-wide trace collector: sampling decision, completed-trace
-    ring buffer, slow-query log, exemplar metrics, and the seen-jit-shape
-    set behind the compile-vs-cache-hit dispatch fact."""
+    ring buffer, slow-query log and exemplar metrics."""
 
     def __init__(self, sample_rate: float = 1.0, ring_size: int = 256,
                  slow_ms: float = 1000.0, metrics=None):
@@ -372,11 +378,6 @@ class Tracer:
         self.metrics = metrics
         self._ring: deque = deque(maxlen=max(int(ring_size), 1))
         self._ring_lock = threading.Lock()
-        # (id(index), padded_rows, k) shapes seen since tracing began: the
-        # first dispatch of a shape is (a proxy for) the jit compile. Bounded
-        # so a pathological shape churn cannot grow it without limit.
-        self._shapes: set = set()
-        self._shapes_lock = threading.Lock()
 
     def set_sample_rate(self, rate: float) -> None:
         """Adjust the trace sampling gate (clamped to [0, 1]). The
@@ -419,7 +420,7 @@ class Tracer:
         trace.root.end()
         doc = trace.to_dict()
         with self._ring_lock:
-            self._ring.append(doc)
+            self._ring.append((trace.root.start_ns, doc))
         dur = trace.root.duration_ms or 0.0
         slow = self.slow_ms > 0.0 and dur >= self.slow_ms
         if slow:
@@ -443,36 +444,18 @@ class Tracer:
     def snapshot(self) -> list[dict]:
         """Completed traces, oldest first (the /debug/traces body)."""
         with self._ring_lock:
+            return [doc for _, doc in self._ring]
+
+    def timed(self) -> list[tuple[int, dict]]:
+        """Completed traces with their roots' perf_counter_ns starts, oldest
+        first: what a device trace lays on its own clock."""
+        with self._ring_lock:
             return list(self._ring)
 
     def clear(self) -> None:
         """Drop buffered traces (bench windows reset between measurements)."""
         with self._ring_lock:
             self._ring.clear()
-
-    def first_shape(self, key: tuple) -> bool:
-        """True the first time a dispatch shape is seen since tracing began
-        — a proxy for "this dispatch paid the jit compile" (shapes warmed
-        before the tracer came up read as first sightings once)."""
-        with self._shapes_lock:
-            if key in self._shapes:
-                return False
-            if len(self._shapes) >= 8192:  # runaway shape churn backstop
-                self._shapes.clear()
-            self._shapes.add(key)
-        # a first sighting is (a proxy for) a jit compile — journal it so
-        # an incident bundle shows whether the window around a latency
-        # spike was paying compiles (monitoring/incidents.py; burst-
-        # coalesced, one-comparison no-op when the plane is off). Lazy
-        # import: incidents is off tracing's import path by design.
-        try:
-            from weaviate_tpu_torch.monitoring import incidents
-
-            incidents.emit("jit_compile", scope="dispatch",
-                           padded_rows=int(key[1]), k=int(key[2]))
-        except Exception:  # noqa: BLE001 — observability must not break serving
-            pass
-        return True
 
 
 # -- module state + zero-hop accessors ----------------------------------------
@@ -562,6 +545,20 @@ def span(name: str, **attrs) -> Iterator[Optional[Span]]:
         s.end()
 
 
+@contextlib.contextmanager
+def resume(s: Optional[Span]) -> Iterator[None]:
+    """Make `s`, captured on another thread, the current span here (a pool
+    thread doing part of that request's work). No-op for None."""
+    if s is None or _tracer is None:
+        yield
+        return
+    token = _CURRENT.set(s)
+    try:
+        yield
+    finally:
+        _CURRENT.reset(token)
+
+
 def dispatch_record(actual_rows: int = 0) -> Optional[DispatchRecord]:
     """The record a shard dispatch should record phases into:
 
@@ -595,14 +592,6 @@ def push_dispatch(rec: Optional[DispatchRecord]):
 def pop_dispatch(token) -> None:
     if token is not None:
         _DISPATCH.reset(token)
-
-
-def note_shape(key: tuple) -> Optional[bool]:
-    """First-sighting bit for a dispatch jit shape; None when disabled."""
-    t = _tracer
-    if t is None:
-        return None
-    return t.first_shape(key)
 
 
 def annotate_current(key: str, value: Any) -> None:

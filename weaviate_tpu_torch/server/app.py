@@ -101,7 +101,8 @@ class App:
             self.perf_window = perf.configure(perf.PerfWindow(
                 window_s=tc.perf_window_s,
                 metrics=self.metrics,
-                sample_hint=tc.sample_rate))
+                sample_hint=tc.sample_rate,
+                device=self.device))
         else:
             self.tracer = None
             self.perf_window = None

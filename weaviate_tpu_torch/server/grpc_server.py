@@ -205,6 +205,35 @@ class SearchServicer:
         # whether the lane engaged, read from the requests it served)
         self.raw_lane_batches = 0
         self._raw_lane_lock = threading.Lock()
+        # BatchSearch decode figures (ms, thread CPU ms) from the request
+        # deserializer to the handler while the tracer is up: grpc runs the
+        # deserializer on a thread of its own, so they go by the message's id
+        self._decoded: dict[int, tuple[float, float]] = {}
+        self._decoded_lock = threading.Lock()
+
+    # figures of requests no handler took are dropped past this many
+    _DECODED_MAX = 1024
+
+    def decode_batch_request(self, data: bytes) -> pb.BatchSearchRequest:
+        """BatchSearch's request_deserializer: the protobuf parse, timed
+        while the tracer is up."""
+        if tracing.get_tracer() is None:
+            return pb.BatchSearchRequest.FromString(data)
+        t0, c0 = time.perf_counter_ns(), time.thread_time_ns()
+        msg = pb.BatchSearchRequest.FromString(data)
+        fig = ((time.perf_counter_ns() - t0) / 1e6, (time.thread_time_ns() - c0) / 1e6)
+        with self._decoded_lock:
+            if len(self._decoded) >= self._DECODED_MAX:
+                self._decoded.clear()
+            self._decoded[id(msg)] = fig
+        return msg
+
+    def _pop_decode(self, request) -> Optional[tuple[float, float]]:
+        """The decode figures of `request` (None with the tracer off)."""
+        if tracing.get_tracer() is None:
+            return None
+        with self._decoded_lock:
+            return self._decoded.pop(id(request), None)
 
     def _timeout_ms(self, explicit_ms: float, transport_ms: float) -> float:
         """The effective deadline: an EXPLICIT x-request-timeout-ms wins
@@ -314,7 +343,31 @@ class SearchServicer:
         nearVector query with verbatim replies, the whole batch runs as
         device search -> packed native point-gets -> packed native reply
         marshalling, with no per-result Python objects anywhere. None =>
-        the general path (which is always correct) serves the batch."""
+        the general path (which is always correct) serves the batch.
+        Traced as `grpc.parse`, the shard's `dispatch`, `grpc.reply`."""
+        lane = self._raw_lane_target(request)
+        if lane is None:
+            return None
+        shard, dim, k = lane
+        with tracing.span("grpc.parse"):
+            q = np.empty((len(request.requests), dim), dtype=np.float32)
+            for i, r in enumerate(request.requests):
+                q[i] = np.fromiter(r.near_vector.vector, np.float32, dim)
+        try:
+            out = shard.search_raw_packed(q, k)
+        except Exception:  # noqa: BLE001 — the general path re-runs + reports
+            return None
+        if out is None:
+            return None
+        vbuf, voffs, vflags, flat_dists, counts = out
+        with tracing.span("grpc.reply"):
+            return reply_native.build_batch_reply_packed(
+                vbuf, voffs, vflags, flat_dists, counts,
+                time.perf_counter() - start)
+
+    def _raw_lane_target(self, request: pb.BatchSearchRequest):
+        """-> (the class's one local shard, the queries' dimension, k) when
+        the raw lane can serve the batch, else None."""
         reqs = request.requests
         if not reqs:
             return None
@@ -347,19 +400,7 @@ class SearchServicer:
             return None
         if not shard.raw_plane_ready():
             return None  # before ANY device work: the general path searches once
-        q = np.empty((len(reqs), dim), dtype=np.float32)
-        for i, r in enumerate(reqs):
-            q[i] = np.fromiter(r.near_vector.vector, np.float32, dim)
-        try:
-            out = shard.search_raw_packed(q, k)
-        except Exception:  # noqa: BLE001 — the general path re-runs + reports
-            return None
-        if out is None:
-            return None
-        vbuf, voffs, vflags, flat_dists, counts = out
-        return reply_native.build_batch_reply_packed(
-            vbuf, voffs, vflags, flat_dists, counts,
-            time.perf_counter() - start)
+        return shard, dim, k
 
     def BatchSearch(self, request: pb.BatchSearchRequest, context) -> pb.BatchSearchReply:
         """Per-slot error isolation end to end: a malformed request or failed
@@ -368,9 +409,14 @@ class SearchServicer:
         start = time.perf_counter()
         rid, traceparent, expl_tmo, trans_tmo, raw_tenant = \
             _request_meta(context)
+        decode = self._pop_decode(request)
         with tracing.request("grpc", "BatchSearch", traceparent=traceparent,
                              request_id=rid,
                              slots=len(request.requests)) as tr:
+            if tr is not None and decode is not None:
+                # the protobuf parse ran before the root, on grpc's thread
+                tr.root.annotate("decode_ms", round(decode[0], 3))
+                tr.root.annotate("decode_cpu_ms", round(decode[1], 3))
             _set_reply_meta(context, rid, tr)
             try:
                 # traced + metadata-echoed like the Search twin above
@@ -422,21 +468,29 @@ class SearchServicer:
                 with self._raw_lane_lock:
                     self.raw_lane_batches += 1
                 return raw
-        slot_params: list = [None] * len(request.requests)
-        parse_errs: dict[int, str] = {}
-        for i, r in enumerate(request.requests):
-            try:
-                slot_params[i] = params_from_proto(r)
-            except Exception as e:
-                parse_errs[i] = str(e)
-        valid = [(i, p) for i, p in enumerate(slot_params) if i not in parse_errs]
+        with tracing.span("grpc.parse"):
+            slot_params: list = [None] * len(request.requests)
+            parse_errs: dict[int, str] = {}
+            for i, r in enumerate(request.requests):
+                try:
+                    slot_params[i] = params_from_proto(r)
+                except Exception as e:
+                    parse_errs[i] = str(e)
+            valid = [(i, p) for i, p in enumerate(slot_params) if i not in parse_errs]
         results = self.app.traverser.get_class_batched([p for _, p in valid]) if valid else []
         took = time.perf_counter() - start
         slot_out: dict[int, object] = {i: res for (i, _), res in zip(valid, results)}
-        if not parse_errs and len(valid) == len(request.requests):
-            whole = self._whole_batch_fast(request, slot_out, took)
-            if whole is not None:
-                return whole
+        with tracing.span("grpc.reply"):
+            if not parse_errs and len(valid) == len(request.requests):
+                whole = self._whole_batch_fast(request, slot_out, took)
+                if whole is not None:
+                    return whole
+            return self._batch_reply_chunks(request, slot_out, parse_errs, took)
+
+    @staticmethod
+    def _batch_reply_chunks(request, slot_out: dict, parse_errs: dict,
+                            took: float) -> bytes:
+        """The BatchSearchReply, slot by slot, as wire bytes."""
         # assemble the outer BatchSearchReply as wire bytes so fast-path
         # slots (native-marshalled, see fast_reply_bytes) splice in without
         # ever becoming Python message objects; slow slots serialize via upb
@@ -501,7 +555,7 @@ def _handlers(servicer) -> grpc.GenericRpcHandler:
         ),
         "BatchSearch": grpc.unary_unary_rpc_method_handler(
             servicer.BatchSearch,
-            request_deserializer=pb.BatchSearchRequest.FromString,
+            request_deserializer=servicer.decode_batch_request,
             response_serializer=_serialize_passthrough,
         ),
     })

@@ -179,13 +179,16 @@ class Handler(BaseHTTPRequestHandler):
     # -- plumbing ------------------------------------------------------------
 
     def _json_body(self):
+        """The request body, read (`rest.read`) and decoded (`rest.decode`)."""
         length = int(self.headers.get("Content-Length") or 0)
-        raw = self.rfile.read(length) if length else b""
+        with tracing.span("rest.read"):
+            raw = self.rfile.read(length) if length else b""
         self._body_consumed = True
         if not raw:
             return None
         try:
-            return json.loads(raw)
+            with tracing.span("rest.decode"):
+                return json.loads(raw)
         except json.JSONDecodeError as e:
             raise HTTPError(400, f"invalid json: {e}") from None
 
@@ -744,18 +747,19 @@ class Handler(BaseHTTPRequestHandler):
         body = self._json_body() or {}
         payloads = body.get("objects") or []
         results = self.app.batch.add_objects(payloads, cl=self._cl())
-        out = []
-        for r in results:
-            if r.err:
-                out.append({
-                    **(r.original or {}),
-                    "result": {"status": "FAILED",
-                               "errors": {"error": [{"message": r.err}]}},
-                })
-            else:
-                out.append({**r.obj.to_rest(include_vector=False),
-                            "result": {"status": "SUCCESS"}})
-        self._reply(200, out)
+        with tracing.span("rest.reply"):
+            out = []
+            for r in results:
+                if r.err:
+                    out.append({
+                        **(r.original or {}),
+                        "result": {"status": "FAILED",
+                                   "errors": {"error": [{"message": r.err}]}},
+                    })
+                else:
+                    out.append({**r.obj.to_rest(include_vector=False),
+                                "result": {"status": "SUCCESS"}})
+            self._reply(200, out)
 
     def h_batch_delete(self):
         body = self._json_body() or {}

@@ -15,6 +15,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from weaviate_tpu_torch.entities.storobj import StorObj
+from weaviate_tpu_torch.monitoring import tracing
 
 
 class ObjectsError(ValueError):
@@ -340,26 +341,29 @@ class BatchManager:
 
     def add_objects(self, payloads: Sequence[dict],
                     cl: Optional[str] = None) -> list[BatchResult]:
-        results = [BatchResult(original=p) for p in payloads]
-        by_class: dict[str, list[int]] = {}
-        for i, p in enumerate(payloads):
-            try:
-                obj = self.om._prepare(p)
-                results[i].obj = obj
-                by_class.setdefault(obj.class_name, []).append(i)
-            except Exception as e:
-                results[i].err = str(e)
-        for class_name, idxs in by_class.items():
-            index = self.om.db.get_index(class_name)
-            if index is None:
-                for i in idxs:
-                    results[i].err = f"class {class_name!r} not found"
-                continue
-            errs = index.put_batch([results[i].obj for i in idxs], cl=cl)
-            for i, e in zip(idxs, errs):
-                if e is not None:
+        """Prepare every payload, then one put_batch per class; traced as
+        `usecase.add_objects`, once a batch."""
+        with tracing.span("usecase.add_objects"):
+            results = [BatchResult(original=p) for p in payloads]
+            by_class: dict[str, list[int]] = {}
+            for i, p in enumerate(payloads):
+                try:
+                    obj = self.om._prepare(p)
+                    results[i].obj = obj
+                    by_class.setdefault(obj.class_name, []).append(i)
+                except Exception as e:
                     results[i].err = str(e)
-        return results
+            for class_name, idxs in by_class.items():
+                index = self.om.db.get_index(class_name)
+                if index is None:
+                    for i in idxs:
+                        results[i].err = f"class {class_name!r} not found"
+                    continue
+                errs = index.put_batch([results[i].obj for i in idxs], cl=cl)
+                for i, e in zip(idxs, errs):
+                    if e is not None:
+                        results[i].err = str(e)
+            return results
 
     def add_references(self, refs: Sequence[dict]) -> list[dict]:
         """POST /v1/batch/references: [{from: beacon w/ prop, to: beacon}]."""
