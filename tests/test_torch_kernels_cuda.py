@@ -646,3 +646,379 @@ def test_mesh_on_card_matches_cpu(card, tmp_path, dtype):
             assert gmin_scan.launches == before + 8  # 4 slabs x (unfiltered, masked)
         finally:
             gpu.set_fused_enabled(None)
+
+
+# -- the gmin dispatch as one CUDA graph per staging entry ---------------------
+#
+# A gmin dispatch on the card replays one CUDA graph per staging entry
+# once its key (`GpuVectorIndex._graph_key`) has served `_GRAPH_AFTER`
+# eager dispatches unchanged: the next one captures, later ones replay.
+# Every answer is held bit for bit against the eager path's.
+
+_GRAPH_D, _GRAPH_N = 64, 20000
+_GRAPH_CONFS = {
+    "cosine": {"distance": "cosine"},
+    "dot": {"distance": "dot"},
+    "l2": {"distance": "l2-squared"},
+    "pq_rescore": {"distance": "l2-squared",
+                   "pq": {"enabled": True, "segments": 8, "centroids": 32}},
+}
+
+
+@pytest.fixture
+def tracer():
+    from weaviate_tpu_torch.monitoring import tracing
+
+    t = tracing.configure(tracing.Tracer(sample_rate=1.0))
+    yield t
+    tracing.unconfigure(t)
+
+
+def _graph_index(card, path, conf, seed=3):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((_GRAPH_N, _GRAPH_D)).astype(np.float32)
+    idx = new_vector_index(vi.parse_and_validate_config("hnsw_tpu", conf), str(path),
+                           device=card)
+    idx.add_batch(np.arange(_GRAPH_N), x)
+    idx.delete(*range(0, 90, 3))
+    return idx, x, rng
+
+
+def _searches(idx, q, times, k=10):
+    """-> (answers, graph facts) of `times` searches of q in a row."""
+    outs, modes = [], []
+    for _ in range(times):
+        outs.append(idx.search_by_vectors(q, k))
+        modes.append(idx.pop_dispatch_shape().graph)
+    return outs, modes
+
+
+def _warm(idx, q, replays=1, k=10):
+    """-> (answers, graph facts) of the searches of q that take one staging
+    entry from its key's first dispatch through its capture and `replays`
+    replays."""
+    return _searches(idx, q, idx._GRAPH_AFTER + 1 + replays, k)
+
+
+def _warm_modes(idx, replays=1):
+    return ["eager"] * idx._GRAPH_AFTER + ["capture"] + ["replay"] * replays
+
+
+def _assert_same(got, want):
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1].view(np.int32), want[1].view(np.int32))
+
+
+def _eager(idx, monkeypatch, q, k=10):
+    """The eager path's answer on the current snapshot."""
+    with monkeypatch.context() as m:
+        m.setattr(idx, "_graph_key", lambda *a: None)
+        return idx.search_by_vectors(q, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("conf", sorted(_GRAPH_CONFS))
+def test_graph_replay_equals_eager(card, tmp_path, tracer, conf, fused):
+    """f32 cosine, dot and l2, and the PQ rescore tier (K1-bf16 over the
+    bf16 copy), fused and staged: eager, capture and replay give the same
+    ids and distances, bit for bit."""
+    idx, x, rng = _graph_index(card, tmp_path, _GRAPH_CONFS[conf])
+    assert idx.compressed == (conf == "pq_rescore")
+    gpu.set_fused_enabled(fused)
+    try:
+        q = rng.standard_normal((16, _GRAPH_D)).astype(np.float32)
+        outs, modes = _warm(idx, q, replays=2)
+    finally:
+        gpu.set_fused_enabled(None)
+    assert modes == _warm_modes(idx, replays=2)
+    for got in outs[1:]:
+        _assert_same(got, outs[0])
+    (entry,) = idx._stage_free[(16, _GRAPH_D)]
+    assert entry.graph is not None
+
+
+def _add(idx, x, rng):
+    idx.add_batch(np.arange(_GRAPH_N, _GRAPH_N + 100),
+                  rng.standard_normal((100, _GRAPH_D)).astype(np.float32))
+
+
+def _delete(idx, x, rng):
+    idx.delete(*range(1000, 1100))
+
+
+def _grow(idx, x, rng):
+    cap = idx.capacity
+    idx.add_batch(np.arange(10 ** 6, 10 ** 6 + cap),
+                  rng.standard_normal((cap, _GRAPH_D)).astype(np.float32))
+    assert idx.capacity > cap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conf", ["cosine", "pq_rescore"])
+def test_graph_recaptures_after_writes_and_matches_eager(card, tmp_path, tracer,
+                                                         monkeypatch, conf):
+    """After an add, a delete and a growth, no stale graph replays: the
+    parked one is dropped, the new key runs eagerly until it has lived
+    long enough, then captures, and every answer equals the eager path's
+    on the new snapshot."""
+    idx, x, rng = _graph_index(card, tmp_path, _GRAPH_CONFS[conf])
+    q = rng.standard_normal((16, _GRAPH_D)).astype(np.float32)
+    assert _warm(idx, q)[1] == _warm_modes(idx)
+    for change in (_add, _delete, _grow):
+        change(idx, x, rng)
+        want = _eager(idx, monkeypatch, q)
+        assert all(e.graph is None for e in idx._stage_free[(16, _GRAPH_D)]), change
+        outs, modes = _warm(idx, q)
+        assert modes == _warm_modes(idx), change
+        for got in outs:
+            _assert_same(got, want)
+
+
+@pytest.mark.cuda
+def test_graph_capture_while_four_threads_dispatch(card, tmp_path, monkeypatch):
+    """Four threads search their own queries (16 rows) while a fifth runs
+    new bucket shapes, each its eager dispatches, a capture and a replay:
+    every answer equals the eager path's."""
+    import threading
+
+    idx, x, rng = _graph_index(card, tmp_path, {"distance": "cosine"})
+    qs = [rng.standard_normal((16, _GRAPH_D)).astype(np.float32) for _ in range(4)]
+    wants = [_eager(idx, monkeypatch, q) for q in qs]
+    sizes = (64, 256, 1024, 2048, 3072, 4096)
+    big = {b: rng.standard_normal((b, _GRAPH_D)).astype(np.float32) for b in sizes}
+    big_wants = {b: _eager(idx, monkeypatch, q) for b, q in big.items()}
+    done, errors, modes = threading.Event(), [], []
+
+    def reader(q, want):
+        try:
+            n = 0
+            while not done.is_set() or n < 20:
+                got = idx.search_by_vectors(q, 10)
+                _assert_same(got, want)
+                n += 1
+        except Exception as e:  # noqa: BLE001 - reported by the main thread
+            errors.append(e)
+
+    def capturer():
+        from weaviate_tpu_torch.monitoring import tracing
+
+        t = tracing.configure(tracing.Tracer(sample_rate=1.0))
+        try:
+            for b in sizes:
+                outs, m = _warm(idx, big[b])
+                modes.extend(m)
+                for got in outs:
+                    _assert_same(got, big_wants[b])
+        except Exception as e:  # noqa: BLE001
+            errors.append(e)
+        finally:
+            tracing.unconfigure(t)
+            done.set()
+
+    threads = [threading.Thread(target=reader, args=(q, w)) for q, w in zip(qs, wants)]
+    threads.append(threading.Thread(target=capturer))
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[:3]
+    assert modes.count("capture") == len(sizes)
+
+
+@pytest.mark.cuda
+def test_graph_replay_counts_one_k1_launch(card, tmp_path, tracer):
+    idx, x, rng = _graph_index(card, tmp_path, {"distance": "dot"})
+    q = rng.standard_normal((16, _GRAPH_D)).astype(np.float32)
+    before = gmin_scan.launches
+    assert _warm(idx, q, replays=0)[1] == _warm_modes(idx, replays=0)
+    warm = idx._GRAPH_AFTER + 1
+    assert gmin_scan.launches == before + warm
+    assert _searches(idx, q, 5)[1] == ["replay"] * 5
+    assert gmin_scan.launches == before + warm + 5
+
+
+@pytest.mark.cuda
+def test_no_graph_replays_after_drop(card, tmp_path, tracer, monkeypatch):
+    """drop() takes the parked graphs and the remembered keys with it: a
+    refill of the same shape starts eager again and answers from the new
+    rows."""
+    idx, x, rng = _graph_index(card, tmp_path, {"distance": "l2-squared"})
+    q = rng.standard_normal((16, _GRAPH_D)).astype(np.float32)
+    assert _warm(idx, q)[1] == _warm_modes(idx)
+    idx.drop()
+    assert idx._graph_seen == {} and idx._stage_free == {}
+    idx.add_batch(np.arange(_GRAPH_N) + 10 ** 6,
+                  rng.standard_normal((_GRAPH_N, _GRAPH_D)).astype(np.float32))
+    want = _eager(idx, monkeypatch, q)
+    outs, modes = _warm(idx, q)
+    assert modes == _warm_modes(idx)
+    for got in outs:
+        _assert_same(got, want)
+    assert (want[0] >= 10 ** 6).all()
+
+
+@pytest.mark.cuda
+def test_freeing_a_staging_buffer_during_a_capture(card, tmp_path, tracer, monkeypatch):
+    """A pinned staging buffer that a graph's dispatches read is freed,
+    and pinned memory allocated, while another capture runs: the capture
+    holds (no pinned buffer carries the capture stream, so its free
+    records no event there) and answers as the eager path does."""
+    idx, x, rng = _graph_index(card, tmp_path, {"distance": "cosine"})
+    q16 = rng.standard_normal((16, _GRAPH_D)).astype(np.float32)
+    assert _warm(idx, q16)[1] == _warm_modes(idx)
+    (entry,) = idx._stage_free.pop((16, _GRAPH_D))
+    q64 = rng.standard_normal((64, _GRAPH_D)).astype(np.float32)
+    want = _eager(idx, monkeypatch, q64)
+    scan = idx._scan_packed
+    freed = []
+
+    def free():
+        entry.graph = entry.buf = None  # the last reference: the pinned block is freed
+        freed.append(torch.empty(1 << 16, pin_memory=True))  # the allocator's event sweep
+
+    def scan_and_free(*a, **k):
+        if torch.cuda.is_current_stream_capturing() and not freed:
+            import threading
+
+            t = threading.Thread(target=free)  # another serving thread's work
+            t.start()
+            t.join(timeout=60)
+            assert not t.is_alive()
+        return scan(*a, **k)
+
+    monkeypatch.setattr(idx, "_scan_packed", scan_and_free)
+    outs, modes = _warm(idx, q64)
+    assert modes == _warm_modes(idx) and freed
+    for got in outs:
+        _assert_same(got, want)
+
+
+@pytest.mark.cuda
+def test_no_collection_frees_a_graph_during_a_capture(card, tmp_path, tracer, monkeypatch):
+    """An unreachable index still holding CUDA graphs, and a collection
+    due in the middle of a capture: the capture runs with the collector
+    off, so no graph is freed on the capturing thread, and it answers as
+    the eager path does."""
+    import gc
+    import weakref
+
+    old, _, rng = _graph_index(card, tmp_path / "old", {"distance": "cosine"})
+    q16 = rng.standard_normal((16, _GRAPH_D)).astype(np.float32)
+    assert _warm(old, q16)[1] == _warm_modes(old)
+    idx, x, rng = _graph_index(card, tmp_path / "new", {"distance": "cosine"}, seed=4)
+    q = rng.standard_normal((16, _GRAPH_D)).astype(np.float32)
+    want = _eager(idx, monkeypatch, q)
+    scan = idx._scan_packed
+    thresholds = gc.get_threshold()
+
+    def scan_with_garbage(*a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            gc.set_threshold(1, 1, 1)  # any allocation makes a collection due
+            try:
+                junk = [[i] for i in range(1000)]  # noqa: F841
+            finally:
+                gc.set_threshold(*thresholds)
+        return scan(*a, **k)
+
+    monkeypatch.setattr(idx, "_scan_packed", scan_with_garbage)
+    cycle = {"index": old}
+    cycle["self"] = cycle
+    gone = weakref.ref(old)
+    del old, cycle  # unreachable; its parked entry still holds a graph
+    outs, modes = _warm(idx, q)
+    assert modes == _warm_modes(idx)
+    for got in outs:
+        _assert_same(got, want)
+    gc.collect()
+    assert gone() is None  # a collection during the capture would have freed it
+
+
+@pytest.mark.cuda
+def test_graph_pools_are_counted_against_the_device_budget(card, tmp_path, tracer,
+                                                           monkeypatch):
+    """A capture counts its entry's graph pool (more than 0 bytes) against
+    the device's budget while the pool lives, and a recapture after a
+    write goes into the same pool. Where a new pool does not fit the
+    budget, its capture serves its own dispatch, the graph and the pool go
+    at the entry's release, and the bucket stays eager after. Every answer
+    equals the eager path's."""
+    import gc
+
+    gc.collect()  # earlier tests' unreachable indexes give their pools back now
+    idx, x, rng = _graph_index(card, tmp_path, {"distance": "cosine"})
+    q = rng.standard_normal((16, _GRAPH_D)).astype(np.float32)
+    held = gpu._graph_bytes.get(idx.device, 0)
+    want = _eager(idx, monkeypatch, q)
+    outs, modes = _warm(idx, q)
+    assert modes == _warm_modes(idx)
+    (entry,) = idx._stage_free[(16, _GRAPH_D)]
+    pool, nbytes = entry.pool, idx._graph_seen[(16, _GRAPH_D)].nbytes
+    assert nbytes > 0 and entry.graph.kept and pool.booked == [nbytes]
+    assert gpu._graph_bytes[idx.device] == held + nbytes
+    for got in outs:
+        _assert_same(got, want)
+    _add(idx, x, rng)
+    want = _eager(idx, monkeypatch, q)
+    outs, modes = _warm(idx, q)
+    assert modes == _warm_modes(idx)
+    assert entry.pool is pool and idx._graph_seen[(16, _GRAPH_D)].made == 1
+    assert pool.booked == [nbytes]  # the recapture reused the pool's blocks
+    assert gpu._graph_bytes[idx.device] == held + nbytes
+    for got in outs:
+        _assert_same(got, want)
+    monkeypatch.setattr(gpu, "_graph_budget", lambda device: held + nbytes)
+    q64 = rng.standard_normal((64, _GRAPH_D)).astype(np.float32)
+    want = _eager(idx, monkeypatch, q64)
+    outs, modes = _searches(idx, q64, idx._GRAPH_AFTER + 3)
+    assert modes == ["eager"] * idx._GRAPH_AFTER + ["capture", "eager", "eager"]
+    (e64,) = idx._stage_free[(64, _GRAPH_D)]
+    assert e64.graph is None and e64.pool is None
+    assert idx._graph_seen[(64, _GRAPH_D)].made == 0
+    assert gpu._graph_bytes[idx.device] == held + nbytes
+    for got in outs:
+        _assert_same(got, want)
+
+
+@pytest.mark.cuda
+def test_no_capture_while_a_profiler_session_is_up(card, tmp_path, tracer, monkeypatch):
+    """While a profiler session starts, runs or stops, a key that has lived
+    long enough runs eagerly in place of its capture; the first dispatch
+    after the session captures. Every answer equals the eager path's."""
+    from weaviate_tpu_torch.monitoring import profiling
+
+    idx, x, rng = _graph_index(card, tmp_path, {"distance": "dot"})
+    q = rng.standard_normal((16, _GRAPH_D)).astype(np.float32)
+    want = _eager(idx, monkeypatch, q)
+    outs, modes = _searches(idx, q, idx._GRAPH_AFTER)
+    profiling._begin_session()
+    try:
+        during, modes_during = _searches(idx, q, 2)
+    finally:
+        profiling._end_session()
+    after, modes_after = _searches(idx, q, 2)
+    assert modes + modes_during == ["eager"] * (idx._GRAPH_AFTER + 2)
+    assert modes_after == ["capture", "replay"]
+    for got in outs + during + after:
+        _assert_same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conf", ["cosine", "pq_rescore"])
+def test_searches_beside_writes_stay_eager(card, tmp_path, tracer, monkeypatch, conf):
+    """A write every four searches replaces the key before it has served
+    `_GRAPH_AFTER` dispatches: nothing is captured, and every answer
+    equals the eager path's on its snapshot."""
+    idx, x, rng = _graph_index(card, tmp_path, _GRAPH_CONFS[conf])
+    q = rng.standard_normal((16, _GRAPH_D)).astype(np.float32)
+    modes = []
+    for i in range(2 * idx._GRAPH_AFTER):
+        if i % 4 == 0:
+            ids = np.arange(_GRAPH_N + 10 * i, _GRAPH_N + 10 * i + 10)
+            idx.add_batch(ids, rng.standard_normal((10, _GRAPH_D)).astype(np.float32))
+            want = _eager(idx, monkeypatch, q)
+        got, m = _searches(idx, q, 1)
+        modes += m
+        _assert_same(got[0], want)
+    assert modes == ["eager"] * len(modes)

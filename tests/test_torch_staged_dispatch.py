@@ -399,3 +399,257 @@ def test_fused_toggle_env_and_setter(monkeypatch, value, want):
     assert gpu.fused_dispatch_enabled() is want  # the cached parse until a revert
     gpu.set_fused_enabled(None)
     assert gpu.fused_dispatch_enabled() is True  # unset: fused by default
+
+
+# -- the CUDA graph key of the gmin dispatch ----------------------------------
+#
+# On the card a gmin dispatch replays one CUDA graph per staging entry,
+# keyed by `GpuVectorIndex._graph_key`. The key is a pure function of the
+# snapshot and the dispatch, and the capture rule (`_graph_mode`) a pure
+# function of the keys a bucket sees, so both hold here on CPU tensors,
+# where no graph is ever captured.
+
+
+def _graph_key(idx, snap, b=16, k=K, allow=None, ivf_plan=None):
+    tier = idx.dispatch_tier(snap, allow)
+    s2d = snap.slot_to_doc_dev if gpu.fused_dispatch_enabled() else None
+    got = idx._graph_key(snap, tier, allow, ivf_plan, gpu._bucket_b(b), min(k, snap.live), s2d)
+    return None if got is None else got[0]
+
+
+GRAPH_TIERS = {"exact": {"distance": "cosine"}, "exact_dot": {"distance": "dot"},
+               "exact_l2": {"distance": "l2-squared"},
+               "pq_rescore": {"distance": "l2-squared", "pq": PQ}}
+
+
+@pytest.mark.parametrize("tier", sorted(GRAPH_TIERS))
+def test_graph_key_holds_across_read_only_dispatches(tmp_path, tier):
+    idx, vecs, rng = _built(GRAPH_TIERS[tier], tmp_path)
+    snap = idx._read_snapshot()
+    key = _graph_key(idx, snap)
+    assert key is not None
+    for _ in range(3):
+        idx.search_by_vectors(vecs[:16] + 0.01, K)
+        again = idx._read_snapshot()
+        assert again is snap and _graph_key(idx, again) == key
+    gpu.set_fused_enabled(False)
+    staged = _graph_key(idx, snap)
+    assert staged is not None and staged != key  # fused and staged are two graphs
+
+
+def _grow(idx, vecs):
+    more, _ = _vecs(9, n=CAP)
+    idx.add_batch(np.arange(N, N + CAP), more)  # 16384 -> 32768 slots
+    assert idx.capacity > CAP
+
+
+def _bump_gen(idx, vecs):
+    idx._store_gen += 1
+    idx._staged_gen += 1
+
+
+CHANGES = {
+    "add": lambda idx, vecs: idx.add(N + 5, vecs[7] + 0.5),
+    "delete": lambda idx, vecs: idx.delete(100),
+    "grow": _grow,
+    "store_gen": _bump_gen,
+}
+
+
+@pytest.mark.parametrize("tier", ["exact", "pq_rescore"])
+@pytest.mark.parametrize("change", sorted(CHANGES))
+def test_graph_key_changes_with_the_snapshot(tmp_path, tier, change):
+    """An add (n and the write generation), a delete (a new tombstone
+    tensor), a growth (new tensors) and a bare write-generation bump each
+    give another key."""
+    idx, vecs, _ = _built(GRAPH_TIERS[tier], tmp_path)
+    before = idx._read_snapshot()
+    key = _graph_key(idx, before)
+    tombs = before.tombs
+    CHANGES[change](idx, vecs)
+    after = idx._read_snapshot()
+    assert after is not before
+    assert _graph_key(idx, after) != key
+    if change == "delete":
+        assert after.tombs is not tombs and not tombs[100]
+
+
+@pytest.mark.parametrize("what", ["k", "bb"])
+def test_graph_key_changes_with_the_dispatch(tmp_path, what):
+    idx, _, _ = _built({"distance": "cosine"}, tmp_path)
+    snap = idx._read_snapshot()
+    key = _graph_key(idx, snap)
+    other = _graph_key(idx, snap, k=K + 1) if what == "k" else _graph_key(idx, snap, b=17)
+    assert other is not None and other != key
+    assert _graph_key(idx, snap, b=9) == key  # 9 and 16 rows share the bucket of 16
+
+
+NO_GRAPH = {
+    "allow_list": ({"distance": "cosine", "flatSearchCutoff": 500}, 16, BIG_ALLOW, None),
+    "gather": ({"distance": "cosine", "flatSearchCutoff": 500}, 16, np.array([3, 7, 11]),
+               None),
+    "chunked_b3": ({"distance": "cosine"}, 3, None, None),
+    "exact_topk": ({"distance": "cosine", "exactTopK": True}, 16, None, None),
+    "manhattan": ({"distance": "manhattan"}, 16, None, None),
+    "ivf": ({"distance": "cosine"}, 16, None, (8, 8)),
+    "pq_codes": ({"distance": "dot", "pq": {**PQ, "rescore": False}}, 16, None, None),
+    "pq4_funnel": ({"distance": "l2-squared", "pq": {**PQ, "bits": 4}}, 16, None, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NO_GRAPH))
+def test_filters_and_non_gmin_tiers_never_ask_for_a_graph(tmp_path, case):
+    conf, b, allow, ivf_plan = NO_GRAPH[case]
+    idx, _, _ = _built(conf, tmp_path)
+    al = TorchBitmap(allow) if allow is not None else None
+    assert _graph_key(idx, idx._read_snapshot(), b=b, allow=al, ivf_plan=ivf_plan) is None
+
+
+def test_cpu_tensors_never_ask_for_a_graph(tmp_path):
+    """On the CPU a gmin dispatch runs eagerly however often its key
+    repeats: its `graph` fact reads eager and no key is remembered."""
+    from weaviate_tpu_torch.monitoring import tracing
+
+    idx, vecs, _ = _built({"distance": "cosine"}, tmp_path)
+    assert _graph_key(idx, idx._read_snapshot()) is not None
+    tracer = tracing.configure(tracing.Tracer(sample_rate=1.0))
+    try:
+        modes = []
+        for _ in range(4):
+            idx.search_by_vectors(vecs[:16] + 0.01, K)
+            modes.append(idx.pop_dispatch_shape().graph)
+    finally:
+        tracing.unconfigure(tracer)
+    assert modes == [gpu.GRAPH_EAGER] * 4
+    assert idx._graph_seen == {}
+    assert all(isinstance(e, np.ndarray) for lst in idx._stage_free.values() for e in lst)
+
+
+class _Graph:
+    """What `_capture_graph` leaves on an entry, as `_graph_mode` and
+    `_release_stage` read it."""
+
+    def __init__(self, key, gen=0, kept=True):
+        self.key, self.gen, self.kept = key, gen, kept
+
+
+class _Pool:
+    """A graph pool as `_graph_mode` reads it: the bytes counted for it."""
+
+    def __init__(self, nbytes=0):
+        self.booked = [nbytes]
+
+
+def _entry():
+    return gpu._PinnedStage(torch.empty((16, D)))
+
+
+def _drive(idx, keys, entries=4):
+    """Run `_graph_mode` over the dispatch keys `keys` of one bucket, the
+    pool's entries taken in turn, a capture leaving its graph and pool on
+    the entry as `_capture_graph` does. -> the modes."""
+    pool = [_entry() for _ in range(entries)]
+    modes = []
+    for i, key in enumerate(keys):
+        entry = pool[i % entries]
+        mode = idx._graph_mode(entry, (16, D), key)
+        if mode == gpu.GRAPH_CAPTURE:
+            if entry.pool is None:
+                entry.pool = _Pool()
+                idx._graph_seen[(16, D)].made += 1
+            entry.graph = _Graph(key)
+        modes.append(mode)
+    return modes
+
+
+@pytest.fixture
+def roomy(monkeypatch):
+    """A device budget of 1 GiB and no graph pool counted on it."""
+    monkeypatch.setattr(gpu, "_graph_budget", lambda device: 1 << 30)
+    monkeypatch.setattr(gpu, "_graph_bytes", {})
+
+
+@pytest.mark.parametrize("life", [1, 4, 32, 33, 35, 60])
+def test_graph_mode_captures_a_key_only_once_it_has_lived(tmp_path, roomy, life):
+    """A key is captured once it has served `_GRAPH_AFTER` eager
+    dispatches of its bucket; each of the four entries then captures once
+    and replays after. A key that writes replace within `_GRAPH_AFTER`
+    dispatches (searches beside an import) is never captured."""
+    idx, _, _ = _built({"distance": "cosine"}, tmp_path)
+    after = idx._GRAPH_AFTER
+    assert after == 32
+    modes = _drive(idx, [("key", i // life) for i in range(10 * life)])
+    for n in range(10):
+        got = modes[n * life:(n + 1) * life]
+        eager = min(life, after)
+        capture = min(4, life - eager)
+        assert got == ([gpu.GRAPH_EAGER] * eager + [gpu.GRAPH_CAPTURE] * capture
+                       + [gpu.GRAPH_REPLAY] * (life - eager - capture)), n
+    if life <= after:
+        assert gpu.GRAPH_CAPTURE not in modes
+    assert idx._graph_seen[(16, D)].made == (4 if life > after else 0)
+
+
+BUDGET_CASES = {
+    # (the entry's pool bytes or None, the bucket's last pool bytes, pools
+    # made, spare pool bytes or None, bytes counted on the device) -> capture?
+    "fits": ((None, 1 << 20, 0, None, 0), True),
+    "bucket_too_big": ((None, (1 << 30) + 1, 0, None, 0), False),
+    "device_full": ((None, 1 << 20, 1, None, (1 << 30) - (1 << 19)), False),
+    "own_pool_holds_it": ((1 << 20, 1 << 20, 1, None, 1 << 30), True),
+    "no_pool_left": ((None, 1 << 20, 4, None, 0), False),
+    "a_spare_pool": ((None, 1 << 20, 4, 1 << 20, 4 << 20), True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BUDGET_CASES))
+def test_graph_mode_keeps_to_the_pools_and_the_device_budget(tmp_path, roomy, case):
+    """A key that has lived long enough is captured only where the entry
+    holds a graph pool, the bucket has a spare one or has made fewer than
+    `_STAGE_POOL_CAP`, and the pool's growth to the bucket's last pool
+    size fits what the device's budget has left."""
+    (own, last, made, spare, held), want = BUDGET_CASES[case]
+    idx, _, _ = _built({"distance": "cosine"}, tmp_path)
+    gpu._graph_bytes[idx.device] = held
+    seen = idx._graph_seen[(16, D)] = gpu._GraphBucket()
+    seen.key, seen.served, seen.nbytes, seen.made = "key", idx._GRAPH_AFTER, last, made
+    if spare is not None:
+        seen.spare.append(_Pool(spare))
+    entry = _entry()
+    if own is not None:
+        entry.pool = _Pool(own)
+    mode = idx._graph_mode(entry, (16, D), "key")
+    assert mode == (gpu.GRAPH_CAPTURE if want else gpu.GRAPH_EAGER)
+    assert seen.served == idx._GRAPH_AFTER + (0 if want else 1)
+    booked = [1 << 20]
+    gpu._graph_bytes[idx.device] = held + booked[0]
+    gpu._unbook_graph(idx.device, booked)
+    assert gpu._graph_bytes[idx.device] == held
+
+
+@pytest.mark.parametrize("graph", ["fresh", "stale", "refused", "turned_away"])
+def test_release_drops_a_stale_or_refused_graph(tmp_path, graph):
+    """An entry goes back to the pool without its graph when a publish
+    since the capture made the graph stale, and without its graph pool too
+    when the device's budget refused the pool (the graph served only the
+    dispatch that captured it). An entry the full pool turns away leaves
+    its graph pool to the bucket's spares."""
+    idx, vecs, _ = _built({"distance": "cosine"}, tmp_path)
+    gen = idx._read_snapshot().gen
+    seen = idx._graph_seen[(16, D)] = gpu._GraphBucket()
+    seen.made = 1
+    entry = _entry()
+    entry.pool = pool = _Pool(1 << 20)
+    entry.graph = _Graph("key", gen=gen, kept=graph != "refused")
+    if graph == "stale":
+        idx.add(N + 5, vecs[7] + 0.5)
+        assert idx._read_snapshot().gen != gen
+    if graph == "turned_away":
+        idx._stage_free[(16, D)] = [_entry() for _ in range(idx._STAGE_POOL_CAP)]
+    idx._release_stage(entry)
+    parked = idx._stage_free[(16, D)]
+    assert (entry in parked) == (graph != "turned_away")
+    assert (entry.graph is not None) == (graph == "fresh")
+    assert (entry.pool is pool) == (graph in ("fresh", "stale"))
+    assert seen.spare == ([pool] if graph == "turned_away" else [])
+    assert seen.made == (0 if graph == "refused" else 1)

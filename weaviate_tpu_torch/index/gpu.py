@@ -20,6 +20,15 @@ batches:
   the card, uploaded without blocking on the dispatch's stream); a buffer
   goes back to the pool only after its dispatch's fetch, so a later
   checkout never overwrites rows the copy has not read;
+- on the card an unfiltered dispatch of the group-min tiers replays one
+  CUDA graph per staging entry (`_DispatchGraph`): the chain of launches
+  after the upload, captured once its key (`_graph_key`: what the gmin
+  launch reads, the batch bucket) has served `_GRAPH_AFTER` eager
+  dispatches unchanged, dropped when a write makes it stale; recaptures
+  reuse the entry's memory pool (`_GraphPool`), and the pools are counted
+  against a share of the card's memory. A read-only stretch
+  pays one graph launch a dispatch where the eager chain paid ~38
+  launches, each waiting for the interpreter lock;
 - each dispatch ends in ONE device->host transfer (`_fetch_packed`). With the fused-dispatch
   toggle on (the default) it already carries final doc ids
   (ops/topk.translate_pack); off (`FUSED_DISPATCH_ENABLED=false` or
@@ -92,12 +101,15 @@ traces and the quality auditor (`pop_read_lock_wait`,
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import logging
 import math
 import os
 import struct
 import threading
 import time
+import weakref
 from typing import Optional, Sequence
 
 import numpy as np
@@ -288,14 +300,19 @@ def _valid_slots(tombs, n, base, chunk, allow_words, use_allow):
 
 
 class _PinnedStage:
-    """A pinned host staging buffer of the query pool and the CUDA event
-    recorded after its last upload was enqueued."""
+    """A pinned host staging buffer of the query pool, the CUDA graph of
+    the gmin dispatch captured for it (`_DispatchGraph`) and the memory
+    pool its graphs are captured into (`_GraphPool`). A dispatch has the
+    entry to itself until its blocking fetch is done, on the stream its
+    upload ran on: by then the upload has read the buffer, and no replay
+    of the graph's static buffers is in flight."""
 
-    __slots__ = ("buf", "uploaded")
+    __slots__ = ("buf", "graph", "pool")
 
     def __init__(self, buf: torch.Tensor):
         self.buf = buf
-        self.uploaded: Optional[torch.cuda.Event] = None
+        self.graph: Optional[_DispatchGraph] = None
+        self.pool: Optional[_GraphPool] = None
 
     @property
     def shape(self) -> tuple:
@@ -304,6 +321,129 @@ class _PinnedStage:
     @property
     def nbytes(self) -> int:
         return self.buf.nbytes
+
+
+# how a dispatch ran its device work (the dispatch's `graph` fact)
+GRAPH_EAGER, GRAPH_CAPTURE, GRAPH_REPLAY = "eager", "capture", "replay"
+# the tiers whose dispatch is one full scan (`_dispatch_scan`): the store,
+# or the PQ tier's bf16 rescore copy
+_FULL_SCAN_TIERS = (costmodel.TIER_EXACT, costmodel.TIER_PQ_RESCORE)
+
+# the graphs of one device hold at most this share of its memory in their
+# private pools; a bucket whose pools would pass it stays eager
+_GRAPH_MEM_SHARE = 1 / 16
+
+# captures take turns, process-wide, on one side stream per device: a
+# stream may capture one graph at a time, and pooled streams are shared
+# between indexes
+_capture_lock = threading.Lock()
+_capture_streams: dict = {}
+# the bytes the live graphs' pools hold, per device
+_graph_bytes: dict = {}
+_graph_bytes_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """No cyclic garbage collection in this block: one run on a capturing
+    thread may free a CUDA graph of unreachable objects, a call the
+    capture forbids on its thread, and that invalidates the capture."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
+def _graph_budget(device: torch.device) -> int:
+    """The bytes the graphs' pools may hold on `device`."""
+    return int(torch.cuda.get_device_properties(device).total_memory * _GRAPH_MEM_SHARE)
+
+
+def _graph_fits(device: torch.device, nbytes: int) -> bool:
+    """Whether `nbytes` more of graph pools fit `device`'s budget."""
+    return _graph_bytes.get(device, 0) + nbytes <= _graph_budget(device)
+
+
+def _unbook_graph(device: torch.device, booked: list) -> None:
+    with _graph_bytes_lock:
+        _graph_bytes[device] -= booked[0]
+
+
+class _GraphPool:
+    """The private memory pool that the CUDA graphs of one staging entry
+    are captured into, one after another: a recapture shares the pool of
+    the graph it replaces (`capture_begin(pool=...)`), which `graph` keeps
+    alive until then, since torch lets a capture share only a pool that a
+    live graph holds. So a key that writes replace costs no new device
+    memory. A graph pool that goes is reserved memory the allocator frees
+    only when it runs short, so a bucket makes at most `_STAGE_POOL_CAP`
+    of them and passes them from entry to entry. What it holds is counted
+    against its device's budget while it lives."""
+
+    __slots__ = ("graph", "booked", "__weakref__")
+
+    def __init__(self, device: torch.device):
+        self.graph = None
+        self.booked = [0]
+        weakref.finalize(self, _unbook_graph, device, self.booked)
+
+    def book(self, graph, device: torch.device) -> tuple[int, bool]:
+        """Keep `graph`, just captured into the pool, as its holder. -> (the
+        bytes the pool's segments hold now, whether they are counted
+        against `device`'s budget: not when their growth would pass it)."""
+        self.graph = graph
+        pool = tuple(graph.pool())
+        nbytes = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                     if s["device"] == device.index and tuple(s["segment_pool_id"]) == pool)
+        with _graph_bytes_lock:
+            grow = nbytes - self.booked[0]
+            if grow > 0 and not _graph_fits(device, grow):
+                return nbytes, False
+            _graph_bytes[device] = _graph_bytes.get(device, 0) + grow
+            self.booked[0] = nbytes
+            return nbytes, True
+
+
+class _GraphBucket:
+    """What `_graph_mode` knows of one (padded batch, dim) bucket: the
+    graph key last seen and the eager dispatches it has served, the bytes
+    of the bucket's last graph pool, the pools made for it and those no
+    entry holds."""
+
+    __slots__ = ("key", "served", "nbytes", "made", "spare")
+
+    def __init__(self):
+        self.key, self.served, self.nbytes, self.made = None, 0, 0, 0
+        self.spare: list = []
+
+
+class _DispatchGraph:
+    """One gmin dispatch captured as a CUDA graph: from the static query
+    input `q`, the scan bias, K1, the group top-k, the block gather and
+    rescore, the final top-k and the packing, ending in the static packed
+    output `out`. `holds` keeps alive every tensor whose address the graph
+    baked in, so none is freed while it can replay; `gen` is the snapshot
+    generation it was captured on, and a later publish makes it stale.
+    `kept` is false for a graph whose pool its device's budget refused: it
+    serves the dispatch that captured it, and it and its pool go when that
+    dispatch's entry is released. The upload into `q` stays outside: a
+    pinned buffer a capture copied from carries the capture stream, and
+    its free while another capture runs there invalidates that capture."""
+
+    __slots__ = ("key", "gen", "graph", "q", "out", "holds", "kept")
+
+    def __init__(self, key: tuple, gen: int, graph, q: torch.Tensor, out: torch.Tensor,
+                 holds: tuple, kept: bool):
+        self.key = key
+        self.gen = gen
+        self.graph = graph
+        self.q = q
+        self.out = out
+        self.holds = holds
+        self.kept = kept
 
 
 def _clock() -> tuple[int, int]:
@@ -996,6 +1136,11 @@ class GpuVectorIndex(VectorIndex):
     async_supports_filters = True
     # staging buffers parked per (padded batch, dim)
     _STAGE_POOL_CAP = 4
+    # a graph key is captured once it has served this many eager dispatches
+    # of its bucket unchanged: the bucket's entries then capture at most
+    # once each for every eight dispatches the key has already lived, and a
+    # key that writes replace sooner (searches beside an import) stays eager
+    _GRAPH_AFTER = 8 * _STAGE_POOL_CAP
     # rows per host-scan chunk: bounds the work between deadline checks
     # (and the [B, chunk, D] broadcast of the non-matmul metrics)
     _HOST_SCAN_CHUNK = 65536
@@ -1057,6 +1202,9 @@ class GpuVectorIndex(VectorIndex):
         # the CPU
         self._stage_free: dict[tuple[int, int], list] = {}
         self._stage_lock = sanitizers.register_lock(threading.Lock(), "index.tpu.stage_pool")
+        # CUDA graphs of the gmin dispatch (_DispatchGraph, one per staging
+        # entry): what each (padded batch, dim) bucket has seen
+        self._graph_seen: dict[tuple[int, int], _GraphBucket] = {}
         # (before the upload, after the last kernel) timing event pairs of
         # traced dispatches on the card; list pop/append need no lock
         self._event_pool: list = []
@@ -1631,6 +1779,8 @@ class GpuVectorIndex(VectorIndex):
         self._snap_gen += 1
         self._snap = IndexSnapshot(self._snap_gen, self)
         self._published_gen = self._staged_gen
+        if self.device.type == "cuda":
+            self._drop_stale_graphs()
         m = self.metrics
         if m is not None:
             cls, shard = self._metric_labels()
@@ -1640,6 +1790,17 @@ class GpuVectorIndex(VectorIndex):
         if led is not None and self._staged_t0 is not None:
             led.note_publish((time.perf_counter() - self._staged_t0) * 1000.0)
         self._staged_t0 = None
+
+    def _drop_stale_graphs(self) -> None:
+        """Drop the CUDA graphs of the parked staging entries: a publish
+        follows a write, which changes what they captured (n, the
+        tombstones, the store or its block layout). A parked entry's fetch
+        is done, so none of them is in flight; a checked-out entry's graph
+        goes when the entry is released (`_release_stage`)."""
+        with self._stage_lock:
+            for lst in self._stage_free.values():
+                for entry in lst:
+                    entry.graph = None
 
     def _read_snapshot(self) -> IndexSnapshot:
         """The snapshot a search dispatches on: lock-free when nothing is
@@ -2077,23 +2238,25 @@ class GpuVectorIndex(VectorIndex):
         self._blk_cache[name] = (src, gen, blk)
         return blk
 
-    def _prep_queries_staged(self, vectors: np.ndarray, shape=None):
+    def _prep_queries_staged(self, vectors: np.ndarray, shape=None, gkey=None):
         """Query prep (f32 cast, cosine normalization, bucket padding) into
         a reusable staging buffer from the per-(padded batch, dim) pool,
         then the upload. On the card the buffer is pinned host memory and
-        the upload is non-blocking on the current stream; an event
-        recorded after it rides back to the pool with the buffer. On the
-        CPU the buffer is a numpy array the query tensor aliases.
-        -> (device query [bb, D] f32, actual rows, the staging entry). The
-        entry must go back through _release_stage only AFTER the
-        dispatch's blocking fetch (the finalize wrapper does): by then the
-        copy has read the buffer (on the CPU: the scan has), so the next
-        checkout may overwrite it. With a perf shape (tracer up) this is
+        the upload is non-blocking on the current stream. On the CPU the
+        buffer is a numpy array the query tensor aliases.
+        -> (device query [bb, D] f32, actual rows, the staging entry, the
+        graph mode). With a graph key (`_graph_key`, on the card) the
+        entry's graph and the key's count decide the mode (`_graph_mode`);
+        a graph replay or capture uploads into the graph's static input,
+        so the query is None then. The entry must go back through _release_stage only
+        AFTER the dispatch's blocking fetch (the finalize wrapper does): by
+        then the copy has read the buffer (on the CPU: the scan has), so
+        the next checkout may overwrite it. With a perf shape (tracer up) this is
         the `index.stage` step, a new buffer its `index.stage_alloc` step
         and a count in `shape.stage_alloc`; on the card the dispatch's
         first CUDA event is recorded before the upload."""
         since = _clock() if shape is not None else None
-        q = np.asarray(vectors, dtype=np.float32)
+        q = np.ascontiguousarray(vectors, dtype=np.float32)  # the row norms' summation order
         if q.ndim == 1:
             q = q[None, :]
         b = q.shape[0]
@@ -2111,21 +2274,22 @@ class GpuVectorIndex(VectorIndex):
             if shape is not None:
                 shape.stage_alloc += 1
                 alloc = (_step("index.stage_alloc", t_alloc),)
-        elif pinned and entry.uploaded is not None:
-            entry.uploaded.synchronize()  # its last upload has read it (done already)
         buf = entry.buf.numpy() if pinned else entry
-        np.copyto(buf[:b], q)
         if self.metric == vi.DISTANCE_COSINE:
-            norms = np.linalg.norm(buf[:b], axis=1, keepdims=True)
+            # divided straight into the buffer: one pass less, each a
+            # point where the thread lets go of the interpreter lock
+            norms = np.linalg.norm(q, axis=1, keepdims=True)
             norms[norms == 0] = 1.0
-            buf[:b] /= norms
+            np.divide(q, norms, out=buf[:b])
+        else:
+            np.copyto(buf[:b], q)
         if bb != b:
             buf[b:] = 0.0
         if not pinned:
             if shape is not None:
                 shape.spans.append(_step("index.stage", since, alloc))
-            return torch.from_numpy(buf), b, entry
-        stream = torch.cuda.current_stream(self.device)
+            return torch.from_numpy(buf), b, entry, GRAPH_EAGER
+        mode = self._graph_mode(entry, key, gkey) if gkey is not None else GRAPH_EAGER
         # no timing events while a profiler session is up: the capture
         # times the device itself, and under its start and stop one such
         # record aborted the process
@@ -2137,21 +2301,139 @@ class GpuVectorIndex(VectorIndex):
                     pair = (torch.cuda.Event(enable_timing=True),
                             torch.cuda.Event(enable_timing=True))
                 shape.events = (*pair, self._event_pool)
-                pair[0].record(stream)
+                pair[0].record(torch.cuda.current_stream(self.device))
             finally:
                 profiling.let_go()
-        q_dev = entry.buf.to(self.device, non_blocking=True)
-        entry.uploaded = torch.cuda.Event()
-        entry.uploaded.record(stream)
+        q_dev = entry.buf.to(self.device, non_blocking=True) if mode == GRAPH_EAGER else None
         if shape is not None:
             shape.spans.append(_step("index.stage", since, alloc))
-        return q_dev, b, entry
+        return q_dev, b, entry, mode
+
+    def _graph_mode(self, entry: _PinnedStage, bucket: tuple[int, int], gkey: tuple) -> str:
+        """Replay the entry's graph when its key is this dispatch's; else
+        drop it (stale: its own fetch is done, so it is not in flight) and
+        capture a key that has served `_GRAPH_AFTER` eager dispatches of
+        the bucket unchanged, where the entry has a pool or the bucket may
+        make one, and the pool fits the device's budget at the bucket's
+        last pool size; else run eagerly and count the dispatch. A key that
+        writes replace sooner never reaches the count."""
+        if entry.graph is not None:
+            if entry.graph.key == gkey:
+                return GRAPH_REPLAY
+            entry.graph = None
+        seen = self._graph_seen.get(bucket)
+        if seen is None:
+            seen = self._graph_seen[bucket] = _GraphBucket()
+        if seen.key != gkey:
+            seen.key, seen.served = gkey, 0
+        elif seen.served >= self._GRAPH_AFTER:
+            pool = entry.pool or (seen.spare[-1] if seen.spare else None)
+            held = pool.booked[0] if pool is not None else 0
+            if ((pool is not None or seen.made < self._STAGE_POOL_CAP)
+                    and _graph_fits(self.device, max(0, seen.nbytes - held))):
+                return GRAPH_CAPTURE
+        seen.served += 1
+        return GRAPH_EAGER
+
+    def _graph_key(self, snap: IndexSnapshot, tier: str, allow_list, ivf_plan, bb: int,
+                   k_eff: int, s2d) -> Optional[tuple]:
+        """(the key of the CUDA graph that may serve this dispatch, its gmin
+        launch `_gmin_plan`), or None where the dispatch stays eager: a
+        filter, the IVF plane, the tiers that run no full scan, and shapes
+        `_use_gmin` sends to the chunked scan (batches under 8 rows among
+        them). The key is what the launch reads: the plan's tensors by
+        identity (a graph holds them, so no live graph's id is reused) and
+        its scalars, the tombstones, the fused layout's doc-id column, n,
+        the write generation and the bucketed batch."""
+        if allow_list is not None or ivf_plan is not None or tier not in _FULL_SCAN_TIERS:
+            return None
+        plan = self._gmin_plan(snap, bb, k_eff)
+        if plan is None:
+            return None
+        parts = (*plan, snap.tombs, s2d, snap.n, snap.store_gen, bb)
+        return tuple(id(x) if isinstance(x, torch.Tensor) else x for x in parts), plan
+
+    def _capture_graph(self, snap: IndexSnapshot, gkey: tuple, plan: tuple,
+                       entry: _PinnedStage, s2d, shape=None) -> bool:
+        """Capture the entry's gmin dispatch as one CUDA graph (the
+        `index.capture` step) into the entry's pool (a spare one of the
+        bucket, or a new one): from a static query input, the eager path's
+        own launches of `plan`, K1 through `gmin_scan_launch`, recorded on
+        a side stream in thread_local mode, so the other serving threads
+        keep launching meanwhile. Nothing runs until the replay. -> False,
+        and nothing captured, while a profiler session is up (no capture
+        under its start and stop, as no timing event), and where the
+        bucket's pool, at the size its last capture measured, no longer
+        fits the device's budget (checked again once the captures before
+        this one are done). A failed capture raises, as a failed launch
+        does. A graph whose pool passes the budget serves this dispatch
+        only."""
+        if not profiling.hold_off():
+            return False
+        try:
+            since = _clock() if shape is not None else None
+            seen = self._graph_seen.setdefault(entry.shape, _GraphBucket())
+            if entry.pool is None:
+                with self._stage_lock:
+                    entry.pool = seen.spare.pop() if seen.spare else None
+                    if entry.pool is None:
+                        seen.made += 1
+                if entry.pool is None:
+                    entry.pool = _GraphPool(self.device)
+            graph = torch.cuda.CUDAGraph()
+            with _capture_lock, _no_collection():
+                if not _graph_fits(self.device, max(0, seen.nbytes - entry.pool.booked[0])):
+                    return False
+                stream = _capture_streams.get(self.device)
+                if stream is None:
+                    stream = _capture_streams[self.device] = torch.cuda.Stream(self.device)
+                share = entry.pool.graph.pool() if entry.pool.graph is not None else None
+                with torch.cuda.stream(stream):
+                    graph.capture_begin(pool=share, capture_error_mode="thread_local")
+                    try:
+                        q = torch.empty(entry.shape, dtype=torch.float32, device=self.device)
+                        out = self._scan_packed(snap, q, 0, None, s2d, plan)
+                    except BaseException:
+                        # end the capture the error invalidated; the first
+                        # error is the one raised
+                        with contextlib.suppress(RuntimeError):
+                            graph.capture_end()
+                        raise
+                    graph.capture_end()
+                seen.nbytes, kept = entry.pool.book(graph, self.device)
+        finally:
+            profiling.let_go()
+        entry.graph = _DispatchGraph(gkey, snap.gen, graph, q, out, (*plan, snap.tombs, s2d),
+                                     kept)
+        if shape is not None:
+            shape.spans.append(_step("index.capture", since))
+        return True
+
+    def _replay_graph(self, snap: IndexSnapshot, entry: _PinnedStage, b: int, s2d,
+                      mode: str, shape=None):
+        """Upload the queries into the entry's graph's static input and
+        replay the graph, both on the dispatch's stream; finalize() fetches
+        its static packed output. K1 counts once a dispatch: the capture
+        counted the launch it recorded."""
+        g = entry.graph
+        g.q.copy_(entry.buf, non_blocking=True)
+        g.graph.replay()
+        if mode == GRAPH_REPLAY:
+            gmin_scan.launches += 1
+        return self._finalize(g.out, snap, s2d, b, shape=shape)
 
     def _release_stage(self, entry) -> None:
-        """Park a staging entry for the next dispatch of its shape."""
+        """Park a staging entry for the next dispatch of its shape. Its
+        graph goes first when a publish since its capture made it stale,
+        and with its pool when its device's budget refused the pool. An
+        entry the full pool turns away leaves its graph pool to the
+        bucket's spares."""
         if entry is None:
             return
         key = (entry.shape[0], entry.shape[1])
+        g = entry.graph if isinstance(entry, _PinnedStage) else None
+        if g is not None and (not g.kept or g.gen != self._snap.gen):
+            entry.graph = None
         with self._stage_lock:
             # dim is None once drop() ran: an in-flight dispatch finalizing
             # after drop must NOT re-park its buffer into the cleared pool
@@ -2160,9 +2442,17 @@ class GpuVectorIndex(VectorIndex):
             # appends before the clear wipes it)
             if self.dim is None:
                 return
+            seen = self._graph_seen.get(key)
+            if g is not None and not g.kept:
+                entry.pool = None
+                if seen is not None:
+                    seen.made -= 1
             lst = self._stage_free.setdefault(key, [])
             if len(lst) < self._STAGE_POOL_CAP:
                 lst.append(entry)
+            elif isinstance(entry, _PinnedStage) and entry.pool is not None and seen is not None:
+                seen.spare.append(entry.pool)
+                entry.graph = entry.pool = None
 
     def _allow_words(self, snap: IndexSnapshot, allow_list: AllowList) -> torch.Tensor:
         """Packed device filter words (int32 bits) for a snapshot's slot
@@ -2251,9 +2541,9 @@ class GpuVectorIndex(VectorIndex):
         # while the tracer is up, stamped as the dispatch executes and
         # popped by the shard on the dispatching thread
         shape = None
+        rows = 1 if np.ndim(vectors) == 1 else len(vectors)
         if tracing.get_tracer() is not None:
             t_enq0 = time.perf_counter()
-            rows = 1 if np.ndim(vectors) == 1 else len(vectors)
             shape = (self._ivf_shape(snap, ivf_plan, rows, _bucket_b(rows), k_eff)
                      if ivf_plan is not None
                      else self._dispatch_shape(snap, tier, allow_list, rows, _bucket_b(rows),
@@ -2264,9 +2554,17 @@ class GpuVectorIndex(VectorIndex):
             if snap_step is not None:
                 self._read_local.snap_step = None
                 shape.spans.append(snap_step)
-        q, b, stage = self._prep_queries_staged(vectors, shape)
+        # the gmin tiers replay one CUDA graph per staging entry on the card
+        gkey, plan = ((self._graph_key(snap, tier, allow_list, ivf_plan, _bucket_b(rows), k_eff,
+                                       s2d) if self.device.type == "cuda" else None)
+                      or (None, None))
+        q, b, stage, mode = self._prep_queries_staged(vectors, shape, gkey)
+        if mode == GRAPH_CAPTURE and not self._capture_graph(snap, gkey, plan, stage, s2d, shape):
+            q, mode = stage.buf.to(self.device, non_blocking=True), GRAPH_EAGER
         since = _clock() if shape is not None else None
-        if tier == costmodel.TIER_GATHER:
+        if mode != GRAPH_EAGER:
+            fin = self._replay_graph(snap, stage, b, s2d, mode, shape)
+        elif tier == costmodel.TIER_GATHER:
             fin = self._dispatch_small_allow(snap, q, b, k_eff, allow_list, s2d, shape)
         elif ivf_plan is not None:
             fin = self._dispatch_ivf(snap, q, b, k_eff, allow_list, ivf_plan, s2d, shape)
@@ -2278,6 +2576,7 @@ class GpuVectorIndex(VectorIndex):
             fin = self._dispatch_scan(snap, q, b, k_eff, allow_words, s2d, shape=shape)
         if shape is not None:
             shape.spans.append(_step("index.enqueue", since))
+            shape.graph = mode
             shape.enqueue_ms = (time.perf_counter() - shape.t_start) * 1000.0
             if s2d is not None:
                 # the fused-dispatch ledger invariant: one blocking fetch,
@@ -2381,39 +2680,61 @@ class GpuVectorIndex(VectorIndex):
         return s
 
     def _dispatch_scan(self, snap: IndexSnapshot, q: torch.Tensor, b: int,
-                       k_eff: int, allow_words, s2d, store=None, sq_norms=None,
-                       shape=None):
-        """Full-store scan over `store`: the store uncompressed (f32, or
+                       k_eff: int, allow_words, s2d, shape=None):
+        """Full scan (`_scan_store`): the store uncompressed (f32, or
         bf16 with `storeDtype: bfloat16`: K1 then runs its bf16 filler on
         the store itself), the bf16 rescore copy under PQ with rescore. The group-min fast scan
         when `_use_gmin` allows it, the chunked exact scan otherwise; the
         slot->doc translation runs on the device in both when s2d is the
         snapshot's doc-id column, on the host when it is None."""
-        kk = min(max(k_eff, 1), snap.n)
-        use_allow = allow_words is not None
-        if store is None:
-            store, sq_norms, name = snap.store, snap.sq_norms, "store"
-        else:
-            name = "rescore"
-        if self._use_gmin(snap, q.shape[0], kk):
-            ncols = snap.capacity // gmin_scan.G
-            args = (store, sq_norms, snap.tombs, snap.n, q, allow_words)
-            statics = (use_allow, kk, self.metric, self._gmin_rg(kk, snap.capacity),
-                       -(-snap.n // ncols),  # live store slices only
-                       self._gen_blocks(name, store, snap.store_gen,
-                                        gmin_scan.build_rescore_blocks))
-            if s2d is not None:
-                packed = gmin_scan.search_gmin_fused(*args, s2d, *statics)
-            else:
-                packed = gmin_scan.search_gmin(*args, *statics)
-        else:
-            top, idx = _search_full(
-                store, sq_norms if self.metric == vi.DISTANCE_L2 else None,
-                snap.tombs, snap.n, q, allow_words, kk, self.metric, use_allow,
-                -(-snap.n // _SCAN_CHUNK),
-                self._rescore_r(kk, snap.n))
-            packed = _pack(top, idx, s2d)
+        packed = self._scan_packed(snap, q, k_eff, allow_words, s2d)
         return self._finalize(packed, snap, s2d, b, shape=shape)
+
+    @staticmethod
+    def _scan_store(snap: IndexSnapshot) -> tuple:
+        """(store, row norms, block-cache name) of a full scan on `snap`:
+        the store, or under PQ the bf16 rescore copy."""
+        if snap.compressed:
+            return snap.rescore_dev, snap.rescore_sq_norms, "rescore"
+        return snap.store, snap.sq_norms, "store"
+
+    def _gmin_plan(self, snap: IndexSnapshot, b: int, k_eff: int) -> Optional[tuple]:
+        """The gmin launch of a full scan of b query rows on `snap`:
+        (store, row norms, rescore block layout, kk, rg, live store
+        slices), or None where `_use_gmin` sends the scan to the chunked
+        path."""
+        kk = min(max(k_eff, 1), snap.n)
+        if not self._use_gmin(snap, b, kk):
+            return None
+        store, sq_norms, name = self._scan_store(snap)
+        blocks = self._gen_blocks(name, store, snap.store_gen, gmin_scan.build_rescore_blocks)
+        return (store, sq_norms, blocks, kk, self._gmin_rg(kk, snap.capacity),
+                -(-snap.n // (snap.capacity // gmin_scan.G)))
+
+    def _scan_packed(self, snap: IndexSnapshot, q: torch.Tensor, k_eff: int, allow_words, s2d,
+                     plan=None) -> torch.Tensor:
+        """The launches of `_dispatch_scan` -> its packed result; `plan` is
+        the gmin launch when the caller has it (a graph capture: its block
+        layout is built outside the capture, which would otherwise record
+        the build into the graph)."""
+        use_allow = allow_words is not None
+        if plan is None:
+            plan = self._gmin_plan(snap, q.shape[0], k_eff)
+        if plan is not None:
+            store, sq_norms, blocks, kk, rg, active_g = plan
+            args = (store, sq_norms, snap.tombs, snap.n, q, allow_words)
+            statics = (use_allow, kk, self.metric, rg, active_g, blocks)
+            if s2d is not None:
+                return gmin_scan.search_gmin_fused(*args, s2d, *statics)
+            return gmin_scan.search_gmin(*args, *statics)
+        store, sq_norms, _ = self._scan_store(snap)
+        kk = min(max(k_eff, 1), snap.n)
+        top, idx = _search_full(
+            store, sq_norms if self.metric == vi.DISTANCE_L2 else None,
+            snap.tombs, snap.n, q, allow_words, kk, self.metric, use_allow,
+            -(-snap.n // _SCAN_CHUNK),
+            self._rescore_r(kk, snap.n))
+        return _pack(top, idx, s2d)
 
     def _funnel_budgets(self, k: int, n: int) -> tuple[int, int]:
         """(rg4 stage-1 groups, rc stage-2 survivors) of a funnel whose scan
@@ -2510,8 +2831,7 @@ class GpuVectorIndex(VectorIndex):
             shape.bytes_per_row = 2 * snap.dim if rescore else snap.pq.segments
             shape.extra = None
         if rescore:
-            return self._dispatch_scan(snap, q, b, k, allow_words, s2d, store=snap.rescore_dev,
-                                       sq_norms=snap.rescore_sq_norms, shape=shape)
+            return self._dispatch_scan(snap, q, b, k, allow_words, s2d, shape=shape)
         packed = self._pq_gmin_or_none(snap, q, k, allow_words, use_allow, s2d)
         if packed is not None:
             return self._finalize(packed, snap, s2d, b, k, shape)
@@ -3086,8 +3406,9 @@ class GpuVectorIndex(VectorIndex):
             self._host_tombs = np.zeros(0, dtype=bool)
             with self._stage_lock:
                 # parked staging buffers die with the data (a re-created
-                # class may use another dim)
+                # class may use another dim), their graphs with them
                 self._stage_free.clear()
+            self._graph_seen.clear()
             self._host_rows_cache = None
             self._doc_to_slot.clear()
             self._pending.clear()

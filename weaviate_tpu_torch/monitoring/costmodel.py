@@ -136,7 +136,10 @@ class DispatchShape:
     and the interval [t_start, t_end] from enqueue start to fetch end.
     The index also records the steps of its dispatch in ``spans``
     (``(name, start_ns, end_ns, thread cpu_ns, steps)``, perf_counter_ns)
-    and counts the staging buffers it had to allocate (``stage_alloc``).
+    and counts the staging buffers it had to allocate (``stage_alloc``)
+    and how it ran its device work (``graph``: ``eager`` launches, a
+    ``capture`` of the gmin dispatch as a CUDA graph and its first run, or
+    a ``replay`` of the graph).
     """
 
     __slots__ = ("tier", "n", "dim", "batch", "batch_padded",
@@ -145,7 +148,7 @@ class DispatchShape:
                  "filter_ms", "hydrate_ms", "t_start", "t_end",
                  "t_fetch", "t_fetch_mono", "fused", "fetches",
                  "translate_ms", "backend", "spans", "events",
-                 "stage_alloc")
+                 "stage_alloc", "graph")
 
     def __init__(self, tier: str, n: int, dim: float, batch: int,
                  bytes_per_row: float, k: int = 0,
@@ -198,6 +201,7 @@ class DispatchShape:
         # pair and the pool it goes back to after the fetch
         self.events = None
         self.stage_alloc = 0
+        self.graph = "eager"
 
     # -- analytic totals -----------------------------------------------------
 

@@ -296,11 +296,13 @@ class DispatchRecord:
         """Fold a costmodel.DispatchShape's facts and host-overhead ledger
         into this record (db/shard.py calls it right after the dispatch's
         phases land, before finish()): the tier and the work as plain
-        facts, the staging buffers allocated, and on the card the device
-        time the dispatch's CUDA events measured."""
+        facts, the staging buffers allocated, whether a CUDA graph ran the
+        work, and on the card the device time the dispatch's CUDA events
+        measured."""
         self.attrs.update(tier=shape.tier, n_live=shape.n,
                           dim=shape.dim, flops=shape.flops(),
-                          bytes=shape.bytes(), stage_alloc=shape.stage_alloc)
+                          bytes=shape.bytes(), stage_alloc=shape.stage_alloc,
+                          graph=shape.graph)
         if shape.backend is not None:
             # the PEAKS key of the device the dispatch ran on
             self.attrs["backend"] = shape.backend
