@@ -1108,39 +1108,66 @@ class Shard:
         packed plane can't serve exactly (memtables busy, native
         unavailable); the caller uses the general path. Callers should
         gate on raw_plane_ready() first to avoid duplicate device work."""
+        return self.search_raw_async(q, k, hydrate=True)()
+
+    def search_raw_async(self, q: np.ndarray, k: int, hydrate: bool = False):
+        """The raw lane's device search, enqueued now: -> finalize(), which
+        waits for the result and gives the batch's top min(k, live rows)
+        as (ids, dists), or with `hydrate` search_raw_packed's answer. A
+        class that scatters one batch over several shards enqueues each
+        shard's search before it finalizes any, and hydrates only the
+        winners (point_gets_packed). The dispatch record, opened under the
+        caller's current span, holds one `device_search` phase from the
+        enqueue to the result on the host (under a scatter it spans the
+        other shards' enqueues) with every step and fact of the dispatch,
+        and with `hydrate` the `hydrate` phase. Callers gate on
+        raw_plane_ready() first."""
         m = self.metrics
-        cls = self.class_def.name
-        rec = None
+        rec = tracing.dispatch_record(q.shape[0])
+        cpu = time.thread_time_ns if rec is not None else _no_cpu
         try:
-            rec = tracing.dispatch_record(q.shape[0])
-            cpu = time.thread_time_ns if rec is not None else _no_cpu
-            t1, c1 = time.perf_counter_ns(), cpu()
-            ids, dists = self.vector_index.search_by_vectors(q, k)
+            t0, c0 = time.perf_counter_ns(), cpu()
+            fin = self.vector_index.search_by_vectors_async(q, k)
             lock_wait = self._pop_lock_wait()
             shape = self._pop_dispatch_shape()
-            self._maybe_audit(self._pop_audit_snap(), q, k, None, ids,
-                              dists)
-            t2, c2 = time.perf_counter_ns(), cpu()
-            out = self.hydrate_raw_packed(ids, dists)
-            t3 = time.perf_counter_ns()
-            if rec is not None:
-                rec.phase("device_search", t1, t2, c2 - c1,
-                          shape.spans if shape is not None else ())
-                rec.phase("hydrate", t2, t3, cpu() - c2)
-            if shape is not None:
-                shape.hydrate_ms = (t3 - t2) / 1e6
-            self._trace_dispatch_facts(rec, q.shape[0], k, lock_wait, shape)
-            if m is not None:
-                m.filtered_vector_search.labels(cls, self.name).observe((t2 - t1) / 1e6)
-                m.filtered_vector_objects.labels(cls, self.name).observe(
-                    (t3 - t2) / 1e6)
-                m.vector_index_ops.labels("search", cls, self.name).inc(q.shape[0])
-                m.query_dimensions.labels("nearVector", "search", cls).inc(
-                    int(q.shape[0] * q.shape[1]))
-            return out
-        finally:
+            audit_snap = self._pop_audit_snap()
+            enq_cpu = cpu() - c0
+        except BaseException:
             if rec is not None and rec.owned:
                 rec.finish()
+            raise
+
+        def finalize():
+            try:
+                c1 = cpu()
+                ids, dists = fin()
+                self._maybe_audit(audit_snap, q, k, None, ids, dists)
+                t2, c2 = time.perf_counter_ns(), cpu()
+                out = self.hydrate_raw_packed(ids, dists) if hydrate else (ids, dists)
+                t3 = time.perf_counter_ns()
+                if rec is not None:
+                    rec.phase("device_search", t0, t2, enq_cpu + c2 - c1,
+                              shape.spans if shape is not None else ())
+                    if hydrate:
+                        rec.phase("hydrate", t2, t3, cpu() - c2)
+                if shape is not None and hydrate:
+                    shape.hydrate_ms = (t3 - t2) / 1e6
+                self._trace_dispatch_facts(rec, q.shape[0], k, lock_wait, shape)
+                if m is not None:
+                    cls = self.class_def.name
+                    m.filtered_vector_search.labels(cls, self.name).observe((t2 - t0) / 1e6)
+                    if hydrate:
+                        m.filtered_vector_objects.labels(cls, self.name).observe(
+                            (t3 - t2) / 1e6)
+                    m.vector_index_ops.labels("search", cls, self.name).inc(q.shape[0])
+                    m.query_dimensions.labels("nearVector", "search", cls).inc(
+                        int(q.shape[0] * q.shape[1]))
+                return out
+            finally:
+                if rec is not None and rec.owned:
+                    rec.finish()
+
+        return finalize
 
     def hydrate_raw_packed(self, ids, dists):
         """Packed twin of _hydrate_batch: docid -> uuid -> image entirely in
@@ -1149,17 +1176,23 @@ class Shard:
         ids = np.asarray(ids)
         valid = ~np.isinf(dists)
         counts = valid.sum(axis=1).astype(np.int64)
-        flat_ids = ids[valid].astype("<u8")
+        got = self.point_gets_packed(ids[valid])
+        if got is None:
+            return None
+        vbuf, voffs, vflags = got
+        return vbuf, voffs, vflags, dists[valid], counts
+
+    def point_gets_packed(self, doc_ids: np.ndarray):
+        """The stored images of `doc_ids` ([n]), in their order: (value
+        arena, offsets [n + 1], flags [n], 0 for a row deleted since its
+        search), or None when the packed plane cannot serve exactly."""
+        flat_ids = np.asarray(doc_ids).astype("<u8")
         key_offs = np.arange(flat_ids.size + 1, dtype=np.int64) * 8
         r1 = self.docid_lookup.multi_get_packed(flat_ids.tobytes(), key_offs)
         if r1 is None:
             return None
         ubuf, uoffs, _ = r1
-        r2 = self.objects.multi_get_packed(ubuf, uoffs)
-        if r2 is None:
-            return None
-        vbuf, voffs, vflags = r2
-        return vbuf, voffs, vflags, dists[valid], counts
+        return self.objects.multi_get_packed(ubuf, uoffs)
 
     def _hydrate_batch(
         self, ids, dists, include_vector: bool

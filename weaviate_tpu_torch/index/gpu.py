@@ -2558,22 +2558,25 @@ class GpuVectorIndex(VectorIndex):
         gkey, plan = ((self._graph_key(snap, tier, allow_list, ivf_plan, _bucket_b(rows), k_eff,
                                        s2d) if self.device.type == "cuda" else None)
                       or (None, None))
-        q, b, stage, mode = self._prep_queries_staged(vectors, shape, gkey)
-        if mode == GRAPH_CAPTURE and not self._capture_graph(snap, gkey, plan, stage, s2d, shape):
-            q, mode = stage.buf.to(self.device, non_blocking=True), GRAPH_EAGER
-        since = _clock() if shape is not None else None
-        if mode != GRAPH_EAGER:
-            fin = self._replay_graph(snap, stage, b, s2d, mode, shape)
-        elif tier == costmodel.TIER_GATHER:
-            fin = self._dispatch_small_allow(snap, q, b, k_eff, allow_list, s2d, shape)
-        elif ivf_plan is not None:
-            fin = self._dispatch_ivf(snap, q, b, k_eff, allow_list, ivf_plan, s2d, shape)
-        elif snap.compressed:
-            fin = self._dispatch_full_pq(snap, q, b, k_eff, allow_list, s2d, shape)
-        else:
-            allow_words = (self._allow_words(snap, allow_list)
-                           if allow_list is not None else None)
-            fin = self._dispatch_scan(snap, q, b, k_eff, allow_words, s2d, shape=shape)
+        # no device work while a profiler session starts or stops
+        with profiling.launching():
+            q, b, stage, mode = self._prep_queries_staged(vectors, shape, gkey)
+            if (mode == GRAPH_CAPTURE
+                    and not self._capture_graph(snap, gkey, plan, stage, s2d, shape)):
+                q, mode = stage.buf.to(self.device, non_blocking=True), GRAPH_EAGER
+            since = _clock() if shape is not None else None
+            if mode != GRAPH_EAGER:
+                fin = self._replay_graph(snap, stage, b, s2d, mode, shape)
+            elif tier == costmodel.TIER_GATHER:
+                fin = self._dispatch_small_allow(snap, q, b, k_eff, allow_list, s2d, shape)
+            elif ivf_plan is not None:
+                fin = self._dispatch_ivf(snap, q, b, k_eff, allow_list, ivf_plan, s2d, shape)
+            elif snap.compressed:
+                fin = self._dispatch_full_pq(snap, q, b, k_eff, allow_list, s2d, shape)
+            else:
+                allow_words = (self._allow_words(snap, allow_list)
+                               if allow_list is not None else None)
+                fin = self._dispatch_scan(snap, q, b, k_eff, allow_words, s2d, shape=shape)
         if shape is not None:
             shape.spans.append(_step("index.enqueue", since))
             shape.graph = mode
@@ -2599,7 +2602,8 @@ class GpuVectorIndex(VectorIndex):
                 if shape is not None and shape.fetches:
                     shape.fetches = 0  # a retried finalize re-runs the fetch
                 t0 = time.perf_counter()
-                out = fin()
+                with profiling.launching():
+                    out = fin()
                 fetched = True
                 if shape is not None:
                     t1 = time.perf_counter()

@@ -40,6 +40,7 @@ trace spans is the profiler's own.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import json
 import os
 import subprocess
@@ -178,12 +179,23 @@ def _run_teardown_hooks() -> None:
 # capture's stop, against the CUDA timing events of traced dispatches: a
 # `cudaEventRecord` while the profiler starts or stops aborted the process
 # on the card. `sessions` counts the lives under way, `users` the event
-# calls under way; a life begins only once those have drained.
+# calls under way; a life begins only once those have drained. Each start
+# and stop of a session (`switching`) also waits for the dispatches' device
+# work under way (`launching`, see `launching()`) and holds new work off:
+# a stop while other threads replayed CUDA graphs hung the process. Those
+# two counts sit under a plain lock of their own (`_launch_lock`), which a
+# dispatch takes twice on its way in and out when no switch is under way.
 _gate = threading.Condition()
-_gate_state = {"sessions": 0, "users": 0}
-# how long a session waits for the event calls under way (each takes
-# microseconds)
+_gate_state = {"sessions": 0, "users": 0, "switching": 0, "launching": 0}
+_launch_lock = threading.Lock()
+_no_switch = threading.Event()  # set while no start or stop is under way
+_no_switch.set()
+# how long a session, or one start or stop, waits for the calls under way
+# (an event call takes microseconds, a dispatch's device work milliseconds)
 _GATE_WAIT_S = 5.0
+# how long a dispatch waits for a start or stop (the first session of a
+# process takes ~10 s to start on the card)
+_SWITCH_WAIT_S = 60.0
 
 
 def hold_off() -> bool:
@@ -203,6 +215,63 @@ def let_go() -> None:
         _gate_state["users"] -= 1
         if not _gate_state["users"]:
             _gate.notify_all()
+
+
+class _Launching:
+    """A dispatch's device work (its upload, its launches or its graph's
+    replay, its fetch): never while a profiler session starts or stops.
+    Waits for a start or stop under way (at most `_SWITCH_WAIT_S`)."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        deadline = None
+        while True:
+            with _launch_lock:
+                if not _gate_state["switching"] or (
+                        deadline is not None and time.monotonic() >= deadline):
+                    _gate_state["launching"] += 1
+                    return self
+            if deadline is None:
+                deadline = time.monotonic() + _SWITCH_WAIT_S
+            _no_switch.wait(max(deadline - time.monotonic(), 0.0))
+
+    def __exit__(self, *exc):
+        with _launch_lock:
+            _gate_state["launching"] -= 1
+        return False
+
+
+_LAUNCHING = _Launching()
+
+
+def launching() -> _Launching:
+    """The context a dispatch's device work runs in (`_Launching`)."""
+    return _LAUNCHING
+
+
+@contextlib.contextmanager
+def _switching(name: str = ""):
+    """One start or stop of a profiler session: after the dispatches'
+    device work under way (at most `_GATE_WAIT_S`), and before any more.
+    With a `name`, traced as that span under the caller's: the time the
+    switch holds new dispatches off."""
+    from weaviate_tpu_torch.monitoring import tracing
+
+    with tracing.span(name) if name else contextlib.nullcontext():
+        with _launch_lock:
+            _gate_state["switching"] += 1
+            _no_switch.clear()
+        deadline = time.monotonic() + _GATE_WAIT_S
+        while _gate_state["launching"] and time.monotonic() < deadline:
+            time.sleep(0.0002)
+        try:
+            yield
+        finally:
+            with _launch_lock:
+                _gate_state["switching"] -= 1
+                if not _gate_state["switching"]:
+                    _no_switch.set()
 
 
 def _begin_session() -> None:
@@ -331,10 +400,16 @@ def warm(device) -> None:
     key = str(device)
     if key in _warmed:
         return
-    with torch.profiler.profile(activities=_activities(device)):
+    prof = torch.profiler.profile(activities=_activities(device))
+    with _switching("profiler.warm_start"):
+        prof.start()
+    try:
         if device is not None and torch.device(device).type == "cuda":
             torch.zeros(1, device=device).add_(1)
             torch.cuda.synchronize(device)
+    finally:
+        with _switching("profiler.warm_stop"):
+            prof.stop()
     _warmed.add(key)
 
 
@@ -488,29 +563,34 @@ def device_trace(data_path: str, seconds: float = 3.0, device=None) -> str:
         # not merge into one trace directory
         out_dir = tempfile.mkdtemp(
             prefix=time.strftime("%Y%m%d-%H%M%S-"), dir=root)
-        _begin_session()
-        try:
-            warm(device)
-            # arm the emergency teardown BEFORE starting: a SIGTERM landing
-            # between start and the finally must still stop the capture
-            # (atexit for normal exits; the chaining SIGTERM handler when one
-            # could be installed — see install_trace_teardown)
-            install_trace_teardown()
-            prof = torch.profiler.profile(activities=_activities(device))
-            with _teardown_lock:
-                _teardown_state["active"] = True
-                _teardown_state["profiler"] = prof
-            t_on = time.perf_counter_ns()
-            prof.start()
-            marks: list[int] = []
+        # a root of its own (the REST route is untraced): the spans of the
+        # session's starts and stops, how long each held the dispatches off
+        with tracing.request("profiler", "device_trace"):
+            _begin_session()
             try:
-                marks += _clock_marks()
-                time.sleep(max(0.0, min(float(seconds), 60.0)))
-                marks += _clock_marks()
+                warm(device)
+                # arm the emergency teardown BEFORE starting: a SIGTERM landing
+                # between start and the finally must still stop the capture
+                # (atexit for normal exits; the chaining SIGTERM handler when one
+                # could be installed — see install_trace_teardown)
+                install_trace_teardown()
+                prof = torch.profiler.profile(activities=_activities(device))
+                with _teardown_lock:
+                    _teardown_state["active"] = True
+                    _teardown_state["profiler"] = prof
+                with _switching("profiler.start"):
+                    t_on = time.perf_counter_ns()
+                    prof.start()
+                marks: list[int] = []
+                try:
+                    marks += _clock_marks()
+                    time.sleep(max(0.0, min(float(seconds), 60.0)))
+                    marks += _clock_marks()
+                finally:
+                    with _switching("profiler.stop"):
+                        stopped = stop_active_trace()
             finally:
-                stopped = stop_active_trace()
-        finally:
-            _end_session()
+                _end_session()
         t_off = time.perf_counter_ns()
         merged = ""
         if stopped:

@@ -12,6 +12,7 @@ concurrent kNN queries ride one device dispatch instead of N.
 
 from __future__ import annotations
 
+import functools
 import json
 import threading
 import time
@@ -344,17 +345,19 @@ class SearchServicer:
         device search -> packed native point-gets -> packed native reply
         marshalling, with no per-result Python objects anywhere. None =>
         the general path (which is always correct) serves the batch.
-        Traced as `grpc.parse`, the shard's `dispatch`, `grpc.reply`."""
+        Traced as `grpc.parse`, the shard's `dispatch`, `grpc.reply`; over
+        several shards the dispatches lie under `class.scatter`, followed
+        by `class.merge` and `class.gather` (ClassIndex.search_raw_packed)."""
         lane = self._raw_lane_target(request)
         if lane is None:
             return None
-        shard, dim, k = lane
+        search, dim, k = lane
         with tracing.span("grpc.parse"):
             q = np.empty((len(request.requests), dim), dtype=np.float32)
             for i, r in enumerate(request.requests):
                 q[i] = np.fromiter(r.near_vector.vector, np.float32, dim)
         try:
-            out = shard.search_raw_packed(q, k)
+            out = search(q, k)
         except Exception:  # noqa: BLE001 — the general path re-runs + reports
             return None
         if out is None:
@@ -366,8 +369,8 @@ class SearchServicer:
                 time.perf_counter() - start)
 
     def _raw_lane_target(self, request: pb.BatchSearchRequest):
-        """-> (the class's one local shard, the queries' dimension, k) when
-        the raw lane can serve the batch, else None."""
+        """-> (the raw lane's search over the class's shards, the queries'
+        dimension, k) when the raw lane can serve the batch, else None."""
         reqs = request.requests
         if not reqs:
             return None
@@ -395,12 +398,12 @@ class SearchServicer:
         idx = self.app.db.get_index(resolved) if resolved else None
         if idx is None:
             return None
-        shard = idx.single_local_shard()
-        if shard is None:
+        # the packed planes are checked before ANY device work: the general
+        # path then searches once
+        shards = idx.raw_lane_shards()
+        if shards is None:
             return None
-        if not shard.raw_plane_ready():
-            return None  # before ANY device work: the general path searches once
-        return shard, dim, k
+        return functools.partial(idx.search_raw_packed, shards), dim, k
 
     def BatchSearch(self, request: pb.BatchSearchRequest, context) -> pb.BatchSearchReply:
         """Per-slot error isolation end to end: a malformed request or failed
