@@ -32,6 +32,7 @@ from weaviate_tpu_torch.entities.filters import LocalFilter
 from weaviate_tpu_torch.entities.schema import ClassDef
 from weaviate_tpu_torch.entities.storobj import StorObj
 from weaviate_tpu_torch.monitoring import tracing
+from weaviate_tpu_torch.storage import lsm_native
 
 
 def _merge_shard_results(
@@ -351,14 +352,15 @@ class ClassIndex:
             if caller is not None:
                 tracing.annotate_span(caller, "merge_candidates", int(sum(
                     np.count_nonzero(~np.isinf(np.asarray(d))) for _, d in parts)))
-        with tracing.span("class.gather"):
+        with tracing.span("class.gather") as gather:
+            lsm = lsm_native.new_stats()
             counts = valid.sum(axis=1).astype(np.int64)
             flat_ids, flat_src = ids[valid], src[valid]
             bufs, offs, flags = [], [np.zeros(1, dtype=np.int64)], []
             m = self.metrics
             for i, s in enumerate(shards):
                 t0 = time.perf_counter()
-                got = s.point_gets_packed(flat_ids[flat_src == i])
+                got = s.point_gets_packed(flat_ids[flat_src == i], stats=lsm)
                 if got is None:
                     return None
                 vbuf, voffs, vflags = got
@@ -368,6 +370,8 @@ class ClassIndex:
                 if m is not None:
                     m.filtered_vector_objects.labels(self.class_name, s.name).observe(
                         (time.perf_counter() - t0) * 1e3)
+            for key, value in lsm_native.trace_facts(lsm).items():
+                tracing.annotate_span(gather, key, value)
             # the shards' values lie grouped by shard; back to merged order
             perm = np.empty(len(flat_src), dtype=np.int64)
             perm[np.argsort(flat_src, kind="stable")] = np.arange(len(flat_src))

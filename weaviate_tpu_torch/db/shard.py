@@ -48,6 +48,7 @@ from weaviate_tpu_torch.testing import faults, sanitizers
 from weaviate_tpu_torch.inverted.bm25 import BM25Searcher
 from weaviate_tpu_torch.inverted.index import InvertedIndex
 from weaviate_tpu_torch.inverted.searcher import FilterSearcher
+from weaviate_tpu_torch.storage import lsm_native
 from weaviate_tpu_torch.storage.bitmap import Bitmap
 from weaviate_tpu_torch.storage.docid import Counter
 from weaviate_tpu_torch.storage.lsm import STRATEGY_REPLACE, Store
@@ -1090,8 +1091,6 @@ class Shard:
         buckets are segment-resident (empty memtables) and the native
         library loads — checked first so an ineligible batch never runs the
         device kNN twice (once here, once on the general path)."""
-        from weaviate_tpu_torch.storage import lsm_native
-
         if not lsm_native.available():
             return False
         for b in (self.docid_lookup, self.objects):
@@ -1120,7 +1119,8 @@ class Shard:
         caller's current span, holds one `device_search` phase from the
         enqueue to the result on the host (under a scatter it spans the
         other shards' enqueues) with every step and fact of the dispatch,
-        and with `hydrate` the `hydrate` phase. Callers gate on
+        and with `hydrate` the `hydrate` phase and its native point-gets'
+        facts (`lsm_probes_per_key`, `lsm_arena_passes`). Callers gate on
         raw_plane_ready() first."""
         m = self.metrics
         rec = tracing.dispatch_record(q.shape[0])
@@ -1143,13 +1143,16 @@ class Shard:
                 ids, dists = fin()
                 self._maybe_audit(audit_snap, q, k, None, ids, dists)
                 t2, c2 = time.perf_counter_ns(), cpu()
-                out = self.hydrate_raw_packed(ids, dists) if hydrate else (ids, dists)
+                lsm = lsm_native.new_stats()
+                out = (self.hydrate_raw_packed(ids, dists, stats=lsm) if hydrate
+                       else (ids, dists))
                 t3 = time.perf_counter_ns()
                 if rec is not None:
                     rec.phase("device_search", t0, t2, enq_cpu + c2 - c1,
                               shape.spans if shape is not None else ())
                     if hydrate:
                         rec.phase("hydrate", t2, t3, cpu() - c2)
+                        rec.fact(**lsm_native.trace_facts(lsm))
                 if shape is not None and hydrate:
                     shape.hydrate_ms = (t3 - t2) / 1e6
                 self._trace_dispatch_facts(rec, q.shape[0], k, lock_wait, shape)
@@ -1169,30 +1172,29 @@ class Shard:
 
         return finalize
 
-    def hydrate_raw_packed(self, ids, dists):
+    def hydrate_raw_packed(self, ids, dists, stats=None):
         """Packed twin of _hydrate_batch: docid -> uuid -> image entirely in
-        buffer space; one call's value arena IS the next call's key buffer."""
+        buffer space, in one native call through both buckets; `stats` as
+        point_gets_packed's."""
         dists = np.asarray(dists, dtype=np.float32)
         ids = np.asarray(ids)
         valid = ~np.isinf(dists)
         counts = valid.sum(axis=1).astype(np.int64)
-        got = self.point_gets_packed(ids[valid])
+        got = self.point_gets_packed(ids[valid], stats=stats)
         if got is None:
             return None
         vbuf, voffs, vflags = got
         return vbuf, voffs, vflags, dists[valid], counts
 
-    def point_gets_packed(self, doc_ids: np.ndarray):
+    def point_gets_packed(self, doc_ids: np.ndarray, stats=None):
         """The stored images of `doc_ids` ([n]), in their order: (value
         arena, offsets [n + 1], flags [n], 0 for a row deleted since its
-        search), or None when the packed plane cannot serve exactly."""
+        search), or None when the packed plane cannot serve exactly.
+        `stats` (`lsm_native.new_stats()`) gains the native call's counts."""
         flat_ids = np.asarray(doc_ids).astype("<u8")
         key_offs = np.arange(flat_ids.size + 1, dtype=np.int64) * 8
-        r1 = self.docid_lookup.multi_get_packed(flat_ids.tobytes(), key_offs)
-        if r1 is None:
-            return None
-        ubuf, uoffs, _ = r1
-        return self.objects.multi_get_packed(ubuf, uoffs)
+        return self.docid_lookup.multi_get_packed(flat_ids.tobytes(), key_offs,
+                                                  then=self.objects, stats=stats)
 
     def _hydrate_batch(
         self, ids, dists, include_vector: bool

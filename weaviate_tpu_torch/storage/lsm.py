@@ -977,26 +977,39 @@ class Bucket:
             out[i] = v
         return out
 
-    def multi_get_packed(self, key_buf, key_offs):
+    def multi_get_packed(self, key_buf, key_offs, then: Optional["Bucket"] = None,
+                         stats=None):
         """Packed-buffer batched point gets for the raw serving lane:
         keys live at key_offs[i]..key_offs[i+1] in key_buf (bytes or uint8
         array; zero-length = missing upstream) -> (value arena, offsets,
-        flags) straight from the native plane. None whenever the packed
-        path cannot serve EXACTLY (memtable non-empty, no segments, native
-        unavailable) — the caller falls back to the general path."""
+        flags) straight from the native plane. With `then`, another
+        replace bucket, each found value is looked up there as a key in the
+        same native call (doc id -> uuid -> object image). `stats`
+        (`lsm_native.new_stats()`) gains the call's counts. None whenever
+        the packed path cannot serve EXACTLY (a memtable non-empty, no
+        segments, native unavailable) — the caller falls back to the
+        general path."""
         assert self.strategy == STRATEGY_REPLACE
         from weaviate_tpu_torch.storage import lsm_native
 
-        with self._lock:
-            if len(self._mem) or not self._segments or not lsm_native.available():
-                return None
-            snapshot = list(reversed(self._segments))
-            self._native_inflight += 1
+        if not lsm_native.available():
+            return None
+        buckets = (self,) if then is None else (self, then)
+        snapshots = []  # newest first
         try:
-            return lsm_native.multi_get_packed(snapshot, key_buf, key_offs)
+            # one bucket's lock at a time: snapshot, then mark in flight
+            for b in buckets:
+                with b._lock:
+                    if len(b._mem) or not b._segments:
+                        return None
+                    snapshots.append(list(reversed(b._segments)))
+                    b._native_inflight += 1
+            return lsm_native.multi_get_packed(snapshots[0], key_buf, key_offs,
+                                               *snapshots[1:], stats=stats)
         finally:
-            with self._lock:
-                self._native_exit()
+            for b in buckets[:len(snapshots)]:
+                with b._lock:
+                    b._native_exit()
 
     def set_get(self, key: bytes) -> set[bytes]:
         assert self.strategy == STRATEGY_SET

@@ -1,10 +1,12 @@
 # The port's copy of weaviate_tpu/storage/lsm_native.py, its imports pointed at the port.
-"""ctypes bridge to the native LSM point-get plane (native/lsm_get.cpp).
+"""ctypes bridge to the port's native LSM point-get plane (csrc/lsm_get.cpp).
 
 Batched replace-strategy point lookups over the mmap'd segment files in ONE
 C call: the GIL is released for its duration (ctypes semantics), so
-concurrent request hydrations overlap instead of serializing, and the
-per-key cost drops from a Python bisect to a bytewise binary search.
+concurrent request hydrations overlap instead of serializing. The call
+resolves every key once, by one hash probe a segment, sums the found
+values' bytes and copies them into an arena of exactly that size, which it
+allocates and this module frees with the arena's last view.
 
 Reference analog: the compiled lsmkv segment readers under the batched
 hydration seam entities/storobj/storage_object.go:211.
@@ -21,16 +23,17 @@ import os
 import subprocess
 import tempfile
 import threading
+import weakref
 from typing import Optional, Sequence
 
 import numpy as np
 
-# the repo's native/*.cpp, built with the host compiler at first use into
-# the checkout's git-ignored build/native/, under a name keyed by the
-# source's content (an edited source rebuilds)
+# host C++ sources, built with the host compiler at first use into the
+# checkout's git-ignored build/native/, under a name keyed by the source's
+# content (an edited source rebuilds)
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _NATIVE_DIR = os.path.join(_REPO, "build", "native")
-_SRC_PATH = os.path.join(_REPO, "native", "lsm_get.cpp")
+_SRC_PATH = os.path.join(_REPO, "weaviate_tpu_torch", "csrc", "lsm_get.cpp")
 
 _lib = None
 _lib_failed = False
@@ -87,12 +90,13 @@ def _load() -> Optional[ctypes.CDLL]:
             lib.lsm_seg_close.argtypes = [ctypes.c_void_p]
             lib.lsm_multi_get.restype = ctypes.c_int64
             lib.lsm_multi_get.argtypes = [
-                ctypes.POINTER(ctypes.c_void_p), ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_ubyte), ctypes.POINTER(ctypes.c_int64),
-                ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_ubyte), ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int8),
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p,
             ]
+            lib.lsm_arena_free.restype = None
+            lib.lsm_arena_free.argtypes = [ctypes.c_void_p]
             _lib = lib
         except Exception:  # noqa: BLE001 — native tier is best-effort
             _lib_failed = True
@@ -101,13 +105,6 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return _load() is not None
-
-
-def _as_u8_ptr(buf):
-    """bytes or uint8 ndarray -> zero-copy c_ubyte pointer."""
-    if isinstance(buf, np.ndarray):
-        return buf.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte))
-    return ctypes.cast(ctypes.c_char_p(buf), ctypes.POINTER(ctypes.c_ubyte))
 
 
 _open_lock = threading.Lock()
@@ -141,43 +138,85 @@ def seg_close(segment) -> None:
     segment._native_handle = None
 
 
-def multi_get_packed(
-    segments_newest_first: Sequence, key_buf: bytes, key_offs: np.ndarray
-) -> Optional[tuple[np.ndarray, np.ndarray, np.ndarray]]:
-    """Packed-buffer batched gets: keys at key_offs[i]..key_offs[i+1] in
-    key_buf (zero-length = missing upstream). -> (value arena uint8 array,
-    offsets int64 [n+1], flags int8 [n]), or None => Python fallback. The
-    arena layout feeds the packed reply builder and call-chaining (one
-    call's values are the next call's keys) without any per-value Python
-    objects. Caller owns segment lifetime."""
-    lib = _load()
-    if lib is None:
-        return None
+def new_stats() -> np.ndarray:
+    """A counter array for `multi_get_packed(..., stats=)`, which adds to
+    it what each call did: [segments searched over all keys, hash slots
+    touched, arenas filled, calls]."""
+    return np.zeros(4, dtype=np.int64)
+
+
+def trace_facts(stats: np.ndarray) -> dict:
+    """The trace facts of the calls counted in `stats`:
+    `lsm_probes_per_key`, the slots touched per key per segment searched,
+    and `lsm_arena_passes`, the arenas filled per call (1 when each call
+    found a value and copied once); {} when no call ran."""
+    searched, probes, fills, calls = (int(v) for v in stats)
+    if not calls:
+        return {}
+    return {"lsm_probes_per_key": round(probes / max(searched, 1), 4),
+            "lsm_arena_passes": round(fills / calls, 4)}
+
+
+def _adopt(lib, addr: int, size: int) -> np.ndarray:
+    """A uint8 array over the `size` bytes the plane allocated at `addr`,
+    freed when the array's last view is."""
+    if not size:
+        return np.empty(0, dtype=np.uint8)
+    buf = (ctypes.c_ubyte * size).from_address(addr)
+    # not at exit: serving threads may still read views then
+    weakref.finalize(buf, lib.lsm_arena_free, addr).atexit = False
+    return np.frombuffer(buf, dtype=np.uint8)
+
+
+def _handles(segments) -> Optional[list[int]]:
     handles = []
-    for s in segments_newest_first:
+    for s in segments:
         h = seg_handle(s)
         if not h:
             return None
         handles.append(h)
+    return handles
+
+
+def multi_get_packed(
+    segments_newest_first: Sequence, key_buf: bytes, key_offs: np.ndarray,
+    then: Sequence = (), stats: Optional[np.ndarray] = None,
+) -> Optional[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Packed-buffer batched gets: keys at key_offs[i]..key_offs[i+1] in
+    key_buf (zero-length = missing upstream). -> (value arena uint8 array,
+    offsets int64 [n+1], flags int8 [n]), or None => Python fallback. With
+    `then`, a second segment list (newest first), each found value is
+    looked up there as a key in the same call, and what that finds is the
+    key's value (a doc id's uuid, then the uuid's object image). The arena
+    holds exactly the found values and feeds the packed reply builder
+    without any per-value Python objects. `stats` (`new_stats()`) gains
+    the call's counts. Caller owns segment lifetime."""
+    lib = _load()
+    if lib is None:
+        return None
+    handles, handles2 = _handles(segments_newest_first), _handles(then)
+    if handles is None or handles2 is None:
+        return None
     n = len(key_offs) - 1
     key_offs = np.ascontiguousarray(key_offs, dtype=np.int64)
+    key_bytes = key_buf.nbytes if isinstance(key_buf, np.ndarray) else len(key_buf)
+    if n < 0 or key_offs[0] < 0 or key_offs[-1] > key_bytes or (np.diff(key_offs) < 0).any():
+        raise ValueError("key offsets must rise within the key buffer")
     out_offs = np.empty(n + 1, dtype=np.int64)
     flags = np.empty(n, dtype=np.int8)
-    seg_arr = (ctypes.c_void_p * len(handles))(*handles)
-    cap = max(1 << 16, n * 1024)
-    key_ptr = _as_u8_ptr(key_buf)
-    for _ in range(2):
-        out = np.empty(cap, dtype=np.uint8)
-        need = lib.lsm_multi_get(
-            seg_arr, len(handles), key_ptr,
-            key_offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), n,
-            out.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)), cap,
-            out_offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            flags.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)))
-        if need <= cap:
-            break
-        cap = int(need)
-    return out, out_offs, flags
+    if stats is None:
+        stats = new_stats()
+    assert stats.dtype == np.int64 and stats.shape == (4,) and stats.flags.c_contiguous
+    arena = ctypes.c_void_p()
+    key_ptr = key_buf.ctypes.data if isinstance(key_buf, np.ndarray) else key_buf
+    need = lib.lsm_multi_get(
+        (ctypes.c_void_p * len(handles))(*handles), len(handles),
+        (ctypes.c_void_p * len(handles2))(*handles2), len(handles2),
+        key_ptr, key_offs.ctypes.data, n, ctypes.byref(arena),
+        out_offs.ctypes.data, flags.ctypes.data, stats.ctypes.data)
+    if need < 0:
+        raise MemoryError(f"native point-get arena of {int(out_offs[n])} bytes")
+    return _adopt(lib, arena.value, need), out_offs, flags
 
 
 def multi_get(segments_newest_first: Sequence,
